@@ -4,9 +4,9 @@ Times ONLY the channelizer stage (input [chunk_in] split-complex on
 device → chans [M, n_frames] split-complex, fetch-forced) for each
 variant, after checking numerics against the legacy path at the same
 shape. Stage-level numbers guide which variants graduate to the
-full-pipeline A/B (`ab_passband.py` / `bench.py`) — defaults are only
-flipped on full-pipeline, oracle-gated wins (docs/PERFORMANCE.md's
-"isolated micro-benchmarks mislead" rule).
+full-pipeline A/B (`ab_gpu.py` / `bench.py`) — defaults are only
+flipped on full-pipeline, oracle-gated wins (isolated micro-benchmarks
+mislead).
 
 Usage: python benchmarks/ab_channelizer.py [variant-names...]
 """
@@ -21,8 +21,6 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_REPO, ".jax_cache"))
 
 M = 2560
 K = 8
@@ -33,14 +31,10 @@ MIN_S = 2.0
 def main():
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops import cx
+    from supersdr_jax import backend
+    backend.enable_compile_cache()
+    from supersdr_jax.ops import channelizer as ch
+    from supersdr_jax.ops import cx
 
     plan, proto = ch.design(M, K)
     W = ch.taps_matrix(plan, proto)

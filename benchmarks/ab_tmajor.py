@@ -1,8 +1,6 @@
-"""On-chip A/B: time-major zero-transpose fast path vs the chan-major
-round-3 default, at the headline config (fetch-forced, state-chained).
-
-Variants: cmajor (r3 shipped), tmajor (+in-kernel RSSI, zero
-transposes), tmajor+f16 audio, tmajor+bf16 audio.
+"""On-chip A/B of the audio layout at the headline config (fetch-forced,
+state-chained): channel-major, time-major (the profiles' layout), and
+time-major with a bf16 audio plane.
 
 Run: python benchmarks/ab_tmajor.py
 """
@@ -12,15 +10,16 @@ import time
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
 import os
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
 import jax
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import cx
-from supersdr_tpu.runtime import wideband
+from supersdr_jax.ops import cx
+from supersdr_jax.runtime import wideband
 
 HEAD = dict(fs_in=30_720_000, n_chan=2560, chunk_in=2560 * (16384 - 256),
             mode="AM", taps_per=8, n_taps=257, audio_rate=48_000)
@@ -69,11 +68,11 @@ def run(tag, **extra):
 
 
 def main():
-    run("cmajor (r3 default)")
+    from supersdr_jax import backend
+
+    backend.enable_compile_cache()
+    run("cmajor")
     run("tmajor", time_major=True)
-    # f16 rejected by Mosaic on this runtime ("Unsupported type in
-    # mosaic dialect: 'f16'", probed r4) — bf16 is the only half-width
-    # audio plane available in-kernel
     run("tmajor+bf16audio", time_major=True, audio_dtype="bf16")
 
 

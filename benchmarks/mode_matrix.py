@@ -1,25 +1,17 @@
-"""Mode / controls cost matrix at the HEADLINE shape (round 5).
+"""Mode / controls cost matrix at the HEADLINE shape.
 
-Round-5 closed the "enabling a reference control forfeits the fast
-tier" gap (VERDICT r4 items 3-5) with tier-retention TESTS; this
-harness puts NUMBERS on the same claim: the per-chunk step time and
-oracle SNR for every demod mode and every fused control, at the exact
-headline shape/profile bench.py times (2560 channels, 41.3 Msample
-chunks, process_n N_SCAN=2, fetch-forced).
-
-Also measures the MID-SSB margin experiment (VERDICT r4 weak #3): the
-fast profile's one-sided (complex-tap) FIR at bf16 gates 50.4 dB —
-only 0.4 dB over the 50 dB floor, because SSB audio takes the FULL
-complex rounding error where AM's envelope projects out ~half of it.
-Row "USB fast+fir3" runs the split-bf16 x3 in-tail FIR (the quality
-tier's FIR, everything else fast) to price the margin fix.
+The per-chunk step time and oracle SNR for every demod mode and every
+reference control (squelch, AGC hang), at the exact headline shape and
+profiles bench.py times (2560 channels, 41.3 Msample chunks, process_n
+N_SCAN=2). Rows "+fir3" run the passband at HIGH precision with the
+rest of the fast profile, to price a precision margin.
 
 Usage: python benchmarks/mode_matrix.py [row-names...]
 Rows gate against the CPU plain-path oracle at the MID shape before
-timing (hang rows are gated informationally: the fused hang window is
-tile-granular by design — [W, W+2*tile] — so exact-oracle SNR on noise
-is NOT a correctness bound there; tests/test_fused_controls.py bounds
-its ballistics instead).
+timing (hang rows are gated informationally: the kernel tail's hang
+window is block-granular by design — [W, W+G] — so exact-oracle SNR on
+noise is NOT a correctness bound there; tests/test_fused_controls.py
+bounds its ballistics instead).
 """
 
 import json
@@ -31,8 +23,6 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_REPO, ".jax_cache"))
 
 import bench  # the shipped bench harness: gates + config constants
 
@@ -67,8 +57,8 @@ ROWS = {
 def time_headline(overrides: dict, tuning: dict) -> dict:
     import jax
     import jax.numpy as jnp
-    from supersdr_tpu.ops import cx
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.ops import cx
+    from supersdr_jax.runtime import wideband
 
     cfg = wideband.WidebandConfig(**{**bench.HEADLINE, **overrides},
                                   **tuning)
@@ -117,12 +107,8 @@ def time_headline(overrides: dict, tuning: dict) -> dict:
 
 def main():
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from supersdr_jax import backend
+    backend.enable_compile_cache()
 
     names = sys.argv[1:] or list(ROWS)
     for name in names:

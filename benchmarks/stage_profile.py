@@ -10,10 +10,10 @@ signal, not ground truth. Each truncated program fuses/DCEs differently
 from the full pipeline, so a stage's delta can be badly inflated (the
 resample delta read 47 ms here while replacing it changed the full
 pipeline by ~0). Any optimization decided from this profile must be
-confirmed by a FULL-pipeline A/B (benchmarks/ab_passband.py) before it
+confirmed by a FULL-pipeline A/B (benchmarks/ab_gpu.py) before it
 becomes a default.
 
-Usage: python benchmarks/stage_profile.py [fft|matmul] [pallas]
+Usage: python benchmarks/stage_profile.py [fft|matmul]
 """
 
 import json
@@ -25,8 +25,6 @@ import numpy as np
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_REPO, ".jax_cache"))
 
 HEADLINE = dict(fs_in=30_720_000, n_chan=2560,
                 chunk_in=2560 * (16384 - 256), mode="AM",
@@ -38,43 +36,30 @@ MIN_S = 1.5
 def main():
     import jax
     import jax.numpy as jnp
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.environ["JAX_COMPILATION_CACHE_DIR"])
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    except Exception:
-        pass
+    from supersdr_jax import backend
+    backend.enable_compile_cache()
 
     from functools import partial
 
-    from supersdr_tpu.ops import agc as agc_ops
-    from supersdr_tpu.ops import channelizer, cx, fir_matmul, overlap_save
-    from supersdr_tpu.ops import demod as demod_ops
-    from supersdr_tpu.ops import resample
-    from supersdr_tpu.ops import squelch as squelch_ops
-    from supersdr_tpu.runtime import chain as chain_mod
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.ops import agc as agc_ops
+    from supersdr_jax.ops import channelizer, cx, fir_matmul, overlap_save
+    from supersdr_jax.ops import demod as demod_ops
+    from supersdr_jax.ops import resample
+    from supersdr_jax.ops import squelch as squelch_ops
+    from supersdr_jax.runtime import chain as chain_mod
+    from supersdr_jax.runtime import wideband
 
     impl = sys.argv[1] if len(sys.argv) > 1 else "fft"
-    pallas = "pallas" in sys.argv[2:]
-    cfg = wideband.WidebandConfig(**HEADLINE, passband_impl=impl,
-                                  pallas_fold=pallas)
+    cfg = wideband.WidebandConfig(**HEADLINE, passband_impl=impl)
     ccfg = cfg.chain_cfg
     params = wideband.make_params(cfg)
     state = wideband.init_state(cfg)
     plan = wideband.pfb_plan(cfg)
 
     def stage_channelize(st, iq):
-        if pallas:
-            from supersdr_tpu.ops.pallas import pfb_fold
-            G = params.W_pfb.reshape(-1)[::-1].reshape(cfg.taps_per,
-                                                       cfg.n_chan)
-            carry, chans = pfb_fold.channelize_pallas_c(
-                plan, G, cx.to_complex(st.pfb_carry), cx.to_complex(iq))
-        else:
-            carry, chans = channelizer.channelize_c(
-                plan, params.W_pfb, cx.to_complex(st.pfb_carry),
-                cx.to_complex(iq))
+        carry, chans = channelizer.channelize_c(
+            plan, params.W_pfb, cx.to_complex(st.pfb_carry),
+            cx.to_complex(iq))
         return cx.split(carry), chans
 
     def stage_passband(st, x):
@@ -142,7 +127,7 @@ def main():
                 break
             iters *= 2
         step_ms = dt / iters * 1e3
-        print(json.dumps({"prefix": name, "impl": impl, "pallas": pallas,
+        print(json.dumps({"prefix": name, "impl": impl,
                           "step_ms": round(step_ms, 2),
                           "delta_ms": round(step_ms - prev, 2),
                           "stat": round(acc, 6)}), flush=True)

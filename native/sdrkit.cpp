@@ -1,6 +1,6 @@
-// sdrkit — native host-side kernels for supersdr_tpu.
+// sdrkit — native host-side kernels for supersdr_jax.
 //
-// The TPU owns the DSP; these are the *host* hot paths that sit on the
+// The device owns the DSP; these are the *host* hot paths that sit on the
 // ingest/egress edge at line rate: IMA-ADPCM transcode (sequential,
 // per-sample — the one loop numpy cannot vectorize; reference decodes it
 // in pure Python at kiwi/client.py:58-87), big-endian sample conversion
@@ -8,7 +8,7 @@
 // a lock-free SPSC ring buffer for the audio callback path.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libsdrkit.so sdrkit.cpp
-// Loaded via ctypes (supersdr_tpu/native.py); every entry point has a
+// Loaded via ctypes (supersdr_jax/native.py); every entry point has a
 // pure-python fallback.
 
 #include <atomic>

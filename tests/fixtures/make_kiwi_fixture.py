@@ -61,7 +61,7 @@ def main(path: str) -> None:
     n_frames = -(-N // 512)
     jitter = rng.normal(scale=2e-6, size=n_frames)   # ±2 µs GPS jitter
 
-    from supersdr_tpu.io import wav
+    from supersdr_jax.io import wav
     wav.write_kiwi_iq_wav(path, z, FS_CLAIMED, frame_len=512,
                           gps_start=1234.0, true_rate=FS_TRUE,
                           gps_jitter_s=jitter)

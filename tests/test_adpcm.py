@@ -1,6 +1,6 @@
 import numpy as np
 
-from supersdr_tpu.ops import adpcm
+from supersdr_jax.ops import adpcm
 
 
 def reference_decoder(data):

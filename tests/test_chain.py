@@ -4,7 +4,7 @@ bound vs the ideal message (the 40 dB bound from BASELINE.md)."""
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.runtime import chain
+from supersdr_jax.runtime import chain
 
 
 def tone_snr_db(x, freq, fs):
@@ -194,10 +194,10 @@ def test_rational_chunk_must_divide_M():
 
 
 def test_fftmxu_passband_matches_fft_streaming(rng):
-    """passband_impl='fftmxu' (layout-rotating MXU overlap-save) is
+    """passband_impl='fftmxu' (layout-rotating matmul overlap-save) is
     sample-equivalent to the plain fft path across streamed chunks,
     including the carried filter history."""
-    from supersdr_tpu.runtime import chain as chain_mod
+    from supersdr_jax.runtime import chain as chain_mod
     n, chunk = 4096, 2048
     iq = ((rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))) * 0.1
           ).astype(np.complex64)

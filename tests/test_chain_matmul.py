@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.ops import cx
-from supersdr_tpu.parallel import mesh as mesh_mod
-from supersdr_tpu.parallel import sharded_chain
-from supersdr_tpu.runtime import chain, wideband
+from supersdr_jax.ops import cx
+from supersdr_jax.parallel import mesh as mesh_mod
+from supersdr_jax.parallel import sharded_chain
+from supersdr_jax.runtime import chain, wideband
 
 
 def _run(cfg, iq, n_chunks):

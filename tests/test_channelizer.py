@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import channelizer
+from supersdr_jax.ops import channelizer
 
 
 def direct_channelize(proto, M, hop, x, m):
@@ -102,7 +102,7 @@ def test_mxu2_matches_legacy_all_sizes(rng):
     fold impls, and the f16 fold dtype (within its ~74 dB floor)."""
     import jax
     import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
+    from supersdr_jax.ops import channelizer as ch
 
     for M, K, nf in [(16, 8, 64), (256, 4, 16), (640, 8, 8), (2560, 8, 4)]:
         plan, proto = ch.design(M, K)
@@ -125,7 +125,7 @@ def test_mxu2_streaming_continuity(rng):
     """Two consecutive mxu2 chunks equal one big chunk (carry exact)."""
     import jax
     import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
+    from supersdr_jax.ops import channelizer as ch
 
     M, K = 640, 8
     plan, proto = ch.design(M, K)

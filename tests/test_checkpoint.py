@@ -4,7 +4,7 @@ sample-exactly."""
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.runtime import chain, checkpoint, wideband
+from supersdr_jax.runtime import chain, checkpoint, wideband
 
 
 def test_chain_resume_sample_exact(tmp_path):

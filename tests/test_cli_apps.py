@@ -4,8 +4,8 @@ session app against the fake Kiwi server (BASELINE configs 1-3)."""
 import numpy as np
 import pytest
 
-from supersdr_tpu import cli
-from supersdr_tpu.io import wav
+from supersdr_jax import cli
+from supersdr_jax.io import wav
 
 
 def make_am_wav(path, fs=12000, seconds=3.0, audio_freq=800.0, depth=0.6):
@@ -64,7 +64,7 @@ def test_cli_waterfall(tmp_path):
     out = tmp_path / "wf.png"
     rc = cli.main(["waterfall", str(src), "-o", str(out), "--avg", "4"])
     assert rc == 0
-    from supersdr_tpu.display.png import read_png_size
+    from supersdr_jax.display.png import read_png_size
     w, h = read_png_size(out)
     assert w == 1024 and h > 100
 
@@ -74,7 +74,7 @@ def test_cli_wideband(tmp_path):
     n_chan = 8
     n = fs  # 1 s
     t = np.arange(n) / fs
-    from supersdr_tpu.ops import channelizer
+    from supersdr_jax.ops import channelizer
     plan, _ = channelizer.design(n_chan, 8)
     freqs = channelizer.channel_center_freqs(plan, fs)
     m = 0.6 * np.cos(2 * np.pi * 500 * t)
@@ -93,7 +93,7 @@ def test_cli_wideband(tmp_path):
 def test_live_kiwi_session_records_audio(tmp_path):
     """Full stack: fake Kiwi serves IQ; session demodulates natively and
     records the audio."""
-    from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
 
     fs = 12000
     t = np.arange(512 * 64) / fs

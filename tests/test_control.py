@@ -1,11 +1,11 @@
 import numpy as np
 from datetime import datetime, timezone
 
-from supersdr_tpu.control import bandplan, beacons, dxcluster, eibi
-from supersdr_tpu.control.kiwilist import KiwiList
-from supersdr_tpu.control.logbook import Logbook, QSO
-from supersdr_tpu.control.memories import MemoryBank
-from supersdr_tpu.control.panadapter import Panadapter
+from supersdr_jax.control import bandplan, beacons, dxcluster, eibi
+from supersdr_jax.control.kiwilist import KiwiList
+from supersdr_jax.control.logbook import Logbook, QSO
+from supersdr_jax.control.memories import MemoryBank
+from supersdr_jax.control.panadapter import Panadapter
 
 
 # ------------------------------------------------------------- band plan

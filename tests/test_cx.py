@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.ops import cx
+from supersdr_jax.ops import cx
 
 
 def _rand_cx(rng, shape):

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import agc as agc_ops
-from supersdr_tpu.ops import demod as demod_ops
+from supersdr_jax.ops import agc as agc_ops
+from supersdr_jax.ops import demod as demod_ops
 
 
 def tone_snr_db(x, freq, fs):

@@ -4,8 +4,8 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.ops import cx
-from supersdr_tpu.parallel import comm_model, dist_fft
+from supersdr_jax.ops import cx
+from supersdr_jax.parallel import comm_model, dist_fft
 
 
 @pytest.mark.parametrize("n", [4096, 8192, 65536])

@@ -5,9 +5,9 @@ profiling utilities."""
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import smeter, spectrum
-from supersdr_tpu.runtime import chain
-from supersdr_tpu.utils.profiling import BlockTimer, ThroughputMeter
+from supersdr_jax.ops import smeter, spectrum
+from supersdr_jax.runtime import chain
+from supersdr_jax.utils.profiling import BlockTimer, ThroughputMeter
 
 
 def tone_snr_db(x, freq, fs):

@@ -5,7 +5,7 @@ overlap-save (and hence to the reference's carry+convolve,
 import numpy as np
 import pytest
 
-from supersdr_tpu.ops import cx, fir_matmul, firdesign, overlap_save
+from supersdr_jax.ops import cx, fir_matmul, firdesign, overlap_save
 
 
 def _oracle(taps, x, overlap_carry=None):
@@ -113,29 +113,3 @@ def test_nondividing_chunk_padding(rng):
         outs.append(np.asarray(y))
     np.testing.assert_allclose(np.concatenate(outs), _oracle(taps, x),
                                rtol=0, atol=2e-4)
-
-
-def test_build_w_free_real_matches_complex_form():
-    """For real taps the [W, B] real matrix reproduces the complex-
-    folded [2W, 2B] matmul exactly (the off-diagonal blocks it drops
-    are all zero) — the r5 half-MACs in-tail FIR for symmetric
-    passbands."""
-    import numpy as np
-    from supersdr_tpu.ops import fir_matmul, firdesign
-
-    B, n_prev = 64, 2
-    taps = firdesign.complex_bandpass_taps(-5000, 5000, 12000, n=129)
-    assert fir_matmul.taps_are_real(taps)
-    w_c = fir_matmul.build_w_free(B, n_prev, taps)       # [2W, 2B]
-    w_r = fir_matmul.build_w_free_real(B, n_prev, taps)  # [W, B]
-    W = (n_prev + 1) * B
-    rng = np.random.default_rng(0)
-    zr = rng.normal(size=(W, 8)).astype(np.float32)
-    zi = rng.normal(size=(W, 8)).astype(np.float32)
-    z = np.concatenate([zr, zi], axis=0)
-    o = w_c.T @ z                                        # [2B, 8]
-    np.testing.assert_allclose(w_r.T @ zr, o[:B], atol=1e-5)
-    np.testing.assert_allclose(w_r.T @ zi, o[B:], atol=1e-5)
-    # one-sided (SSB) taps are NOT real and keep the complex form
-    ssb = firdesign.complex_bandpass_taps(300, 3000, 12000, n=129)
-    assert not fir_matmul.taps_are_real(ssb)

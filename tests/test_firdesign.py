@@ -1,6 +1,6 @@
 import numpy as np
 
-from supersdr_tpu.ops import firdesign
+from supersdr_jax.ops import firdesign
 
 
 def reference_filtering_taps(fl, fs):

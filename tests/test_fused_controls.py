@@ -1,5 +1,5 @@
-"""Round-5 fused-tier controls: NBFM, squelch and AGC hang no longer
-forfeit the fast (Pallas) tier (VERDICT r4 items 3-5).
+"""NBFM, squelch and AGC hang through the GPU tail kernel (run by the
+Pallas interpreter here, `kernel_tail` fixture) against the XLA tail.
 
 Reference capabilities being covered natively:
   NBFM mode    — /root/reference/kiwi/client.py:221-245 mode table
@@ -9,8 +9,9 @@ Reference capabilities being covered natively:
 
 import numpy as np
 
-from supersdr_tpu.ops import agc as agc_ops
-from supersdr_tpu.runtime import chain, wideband
+from supersdr_jax.ops import agc as agc_ops
+from supersdr_jax.ops.pallas import chain_tail
+from supersdr_jax.runtime import chain, wideband
 
 
 def _snr(ref, got):
@@ -34,35 +35,33 @@ def _run_chain(cfg, iq, n_chunks=3, agc_kwargs=None):
     return np.concatenate(parts, axis=-1)
 
 
-def test_nbfm_fused_matches_xla_chain():
-    """The in-kernel quadrature discriminator (polynomial atan2 +
-    mute floor) matches the XLA demod_nbfm through AGC + resample,
-    state-chained across chunks."""
+def test_nbfm_fused_matches_xla_chain(kernel_tail):
+    """The kernel's quadrature discriminator (with the mute floor)
+    matches the XLA demod_nbfm through AGC + resample, state-chained
+    across chunks."""
     rng = np.random.default_rng(0)
     C = 128
     iq = ((rng.normal(size=(C, 512)) + 1j * rng.normal(size=(C, 512)))
           * 0.1).astype(np.complex64)
     outs = {}
-    for tail in ("xla", "pallas"):
+    for tail in ("xla", "auto"):
         cfg = chain.ChainConfig(**CHAIN_BASE, mode="NBFM", tail_impl=tail)
-        if tail == "pallas":
-            assert chain._pallas_tail_ok(cfg, (C,))
+        if tail == "auto":
+            assert chain.kernel_tail_ok(cfg, (C,))
         outs[tail] = _run_chain(cfg, iq)
-    assert _snr(outs["xla"], outs["pallas"]) > 80
+    assert _snr(outs["xla"], outs["auto"]) > 80
 
 
-def test_nbfm_wideband_planar_tier():
-    """Wideband NBFM rides the planar fused tier (no tier loss) and
-    matches the plain-path pipeline."""
+def test_nbfm_wideband_kernel_tail(kernel_tail):
+    """Wideband NBFM at the fast profile with the kernel tail matches
+    the plain-path pipeline (FFT passband, XLA tail, full precision)."""
     rng = np.random.default_rng(1)
     base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
                 mode="NBFM", taps_per=4, n_taps=129)
     prof = dict(wideband.PROFILES["fast"])
-    prof.update(passband_precision="high", chan_precision="high",
-                chan_tile_t=64)
+    prof.update(passband_precision="highest", resample_precision="highest")
     cfg_f = wideband.WidebandConfig(**base, **prof)
-    assert wideband._tmajor_fused_ok(cfg_f)
-    assert wideband._planar_active(cfg_f)
+    assert chain.kernel_tail_ok(cfg_f.chain_cfg, (512,))
     cfg_r = wideband.WidebandConfig(**base)
     iq = ((rng.normal(size=(2, base["chunk_in"]))
            + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
@@ -71,55 +70,42 @@ def test_nbfm_wideband_planar_tier():
                                    wideband.init_state(cfg_r), iq)
     _, got = wideband.process_many(cfg_f, wideband.make_params(cfg_f),
                                    wideband.init_state(cfg_f), iq)
-    order = wideband.audio_channel_order(cfg_f)
-    got_bin = np.swapaxes(np.asarray(got, np.float32), -1, -2)[
-        :, np.argsort(order), :]
+    got_bin = np.swapaxes(np.asarray(got, np.float32), -1, -2)
     assert _snr(np.asarray(ref, np.float32), got_bin) > 70
 
 
-def test_squelch_keeps_fused_tier_and_matches():
-    """squelch_enabled no longer drops the time-major fused path
-    (VERDICT r4 weak #1): the tier stays active and the audio-rate gate
-    matches the chan-major Pallas tail's squelch semantics."""
+def test_squelch_keeps_fused_tier_and_matches(kernel_tail):
+    """squelch_enabled keeps the kernel tail (the gate ramp is applied in
+    the kernel before the resampler, as the XLA chain applies it): open,
+    closed and half-open gates match the XLA tail."""
     rng = np.random.default_rng(2)
-    base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
-                mode="AM", taps_per=4, n_taps=129, squelch_enabled=True)
-    prof = dict(wideband.PROFILES["fast"])
-    prof.update(passband_precision="high", chan_precision="high",
-                chan_tile_t=64)
-    cfg_t = wideband.WidebandConfig(**base, **prof)
-    assert wideband._tmajor_fused_ok(cfg_t)       # the r4 exclusion
-    assert wideband._planar_active(cfg_t)
-    # chan-major Pallas-tail variant (the audio-rate squelch oracle)
-    prof_c = dict(prof)
-    prof_c.pop("time_major")
-    cfg_c = wideband.WidebandConfig(**base, **prof_c)
-    iq = ((rng.normal(size=(2, base["chunk_in"]))
-           + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
-          ).astype(np.complex64)
-    # thresholds chosen to CLOSE the gate on some channels: noise input
-    # puts every channel near the same RSSI, so pick one threshold below
-    # (all open) and run again above (all closed) plus a mid check
-    sq_mid = dict(thresh_db=-200.0)
-    p_t = wideband.make_params(cfg_t, squelch_kwargs=dict(
-        enabled=True, **sq_mid))
-    p_c = wideband.make_params(cfg_c, squelch_kwargs=dict(
-        enabled=True, **sq_mid))
-    _, out_t = wideband.process_many(cfg_t, p_t,
-                                     wideband.init_state(cfg_t), iq)
-    _, out_c = wideband.process_many(cfg_c, p_c,
-                                     wideband.init_state(cfg_c), iq)
-    order = wideband.audio_channel_order(cfg_t)
-    got = np.swapaxes(np.asarray(out_t, np.float32), -1, -2)[
-        :, np.argsort(order), :]
-    assert _snr(np.asarray(out_c, np.float32), got) > 70
-    # gate closed: audio fully muted after the ramp
-    p_t2 = wideband.make_params(cfg_t, squelch_kwargs=dict(
-        enabled=True, thresh_db=100.0))
-    _, out_m = wideband.process_many(cfg_t, p_t2,
-                                     wideband.init_state(cfg_t), iq)
-    tail_audio = np.asarray(out_m, np.float32)[-1, -1000:, :]
-    assert np.abs(tail_audio).max() == 0.0
+    base = dict(fs_in=64 * 12_000, n_chan=64, chunk_in=64 * 512,
+                mode="AM", taps_per=4, n_taps=129, squelch_enabled=True,
+                **wideband.PROFILES["quality"])
+    cfg_k = wideband.WidebandConfig(**base)
+    assert chain.kernel_tail_ok(cfg_k.chain_cfg, (64,))
+    cfg_x = wideband.WidebandConfig(**base, tail_impl="xla")
+    # channel levels spread over ±40 dB, so a mid threshold opens some
+    # gates and closes others
+    level = np.exp(rng.normal(size=64) * 2.0)
+    chans = ((rng.normal(size=(2, 64, 512))
+              + 1j * rng.normal(size=(2, 64, 512))) * 0.01
+             * level[None, :, None])
+    iq = np.fft.ifft(chans, axis=1).transpose(0, 2, 1).reshape(2, -1)
+    iq = iq.astype(np.complex64)
+    for thresh in (-200.0, 100.0, -80.0):
+        kw = dict(squelch_kwargs=dict(enabled=True, thresh_db=thresh))
+        _, out_k = wideband.process_many(cfg_k, wideband.make_params(
+            cfg_k, **kw), wideband.init_state(cfg_k), iq)
+        _, out_x = wideband.process_many(cfg_x, wideband.make_params(
+            cfg_x, **kw), wideband.init_state(cfg_x), iq)
+        out_k = np.asarray(out_k, np.float32)
+        out_x = np.asarray(out_x, np.float32)
+        if thresh == 100.0:
+            # gate closed: audio fully muted after the ramp
+            assert np.abs(out_k[-1, -1000:, :]).max() == 0.0
+        else:
+            assert _snr(out_x, out_k) > 70, thresh
 
 
 def _burst_iq(C, n, fs, strong_until, weak_db=-40.0, am=True):
@@ -135,36 +121,36 @@ def _burst_iq(C, n, fs, strong_until, weak_db=-40.0, am=True):
     return np.broadcast_to(z, (C, n)).copy()
 
 
-def test_hang_fused_steady_matches_xla():
-    """With a steady signal the hang window is irrelevant — the fused
-    ring must be transparent (tight equality with the XLA sliding
+def test_hang_fused_steady_matches_xla(kernel_tail):
+    """With a steady signal the hang window is irrelevant — the kernel's
+    block ring must be transparent (tight equality with the XLA sliding
     max)."""
     C = 128
     iq = _burst_iq(C, 512, 12000, strong_until=512)
     outs = {}
-    for tail in ("xla", "pallas"):
+    for tail in ("xla", "auto"):
         cfg = chain.ChainConfig(**CHAIN_BASE, mode="AM", tail_impl=tail,
                                 hang_enabled=True, hang_ms=40.0)
-        if tail == "pallas":
-            assert chain._pallas_tail_ok(cfg, (C,))   # r4 excluded hang
+        if tail == "auto":
+            assert chain.kernel_tail_ok(cfg, (C,))
         outs[tail] = _run_chain(cfg, iq, n_chunks=4,
                                 agc_kwargs=dict(hang=True))
-    assert _snr(outs["xla"], outs["pallas"]) > 70
+    assert _snr(outs["xla"], outs["auto"]) > 70
 
 
-def test_hang_fused_ballistics_bound():
+def test_hang_fused_ballistics_bound(kernel_tail):
     """Burst signal: after the strong burst ends, the AGC release (and
     with it the weak-signal audio rise) must start no EARLIER than the
-    XLA hang window W and no later than W + 2 tail tiles — the
-    documented tile-granular deviation envelope."""
+    XLA hang window W and no later than W + 2 hang blocks — the
+    documented block-granular deviation envelope."""
     big = dict(CHAIN_BASE, chunk=8192, os_block=8192)
     cfg_x = chain.ChainConfig(**big, mode="USB", tail_impl="xla",
                               hang_enabled=True, hang_ms=150.0)
-    cfg_p = chain.ChainConfig(**big, mode="USB", tail_impl="pallas",
+    cfg_p = chain.ChainConfig(**big, mode="USB", tail_impl="auto",
                               hang_enabled=True, hang_ms=150.0)
-    C = 128
+    C = 32
     W = agc_ops.hang_samples(12000, 150.0)
-    T = chain._tail_tile(8192, 129)
+    T = chain_tail.hang_block(8192)
     burst_end = 2048
     iq = _burst_iq(C, 8192, 12000, strong_until=burst_end, am=False)
     ups = 4
@@ -185,37 +171,37 @@ def test_hang_fused_ballistics_bound():
     on_x = release_onset(_run_chain(cfg_x, iq, n_chunks=1, agc_kwargs=ak))
     on_p = release_onset(_run_chain(cfg_p, iq, n_chunks=1, agc_kwargs=ak))
     assert on_x > W * 0.5                     # hang actually held (xla)
-    # fused holds at least as long, and at most ~2 tiles longer
+    # the kernel holds at least as long, and at most ~2 blocks longer
     assert on_p >= on_x - 64, (on_x, on_p)
     assert on_p <= on_x + 2 * T + 256, (on_x, on_p, T)
 
 
-def test_hang_runtime_flag_off_is_transparent():
+def test_hang_runtime_flag_off_is_transparent(kernel_tail):
     """hang_enabled compiles the ring in, but params.agc.hang == 0 must
     reproduce the no-hang ballistics exactly (runtime select)."""
     rng = np.random.default_rng(3)
     C = 128
     iq = ((rng.normal(size=(C, 512)) + 1j * rng.normal(size=(C, 512)))
           * 0.1).astype(np.complex64)
-    cfg_h = chain.ChainConfig(**CHAIN_BASE, mode="AM", tail_impl="pallas",
-                              hang_enabled=True, hang_ms=40.0)
-    cfg_0 = chain.ChainConfig(**CHAIN_BASE, mode="AM", tail_impl="pallas")
+    cfg_h = chain.ChainConfig(**CHAIN_BASE, mode="AM", hang_enabled=True,
+                              hang_ms=40.0)
+    cfg_0 = chain.ChainConfig(**CHAIN_BASE, mode="AM")
     a_h = _run_chain(cfg_h, iq, agc_kwargs=dict(hang=False))
     a_0 = _run_chain(cfg_0, iq)
     np.testing.assert_allclose(a_h, a_0, atol=1e-6)
 
 
-def test_nbfm_with_squelch_fused_interaction():
-    """NBFM + squelch together on the fused tier: the discriminator's
-    audio gates on the in-kernel RSSI like AM does (the controls
-    compose; each was verified separately above)."""
+def test_nbfm_with_squelch_fused_interaction(kernel_tail):
+    """NBFM + squelch together through the kernel: the discriminator's
+    audio gates on the chunk RSSI like AM does (the controls compose;
+    each was verified separately above)."""
     rng = np.random.default_rng(9)
-    base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
+    base = dict(fs_in=64 * 12_000, n_chan=64, chunk_in=64 * 512,
                 mode="NBFM", taps_per=4, n_taps=129,
                 squelch_enabled=True)
     prof = dict(wideband.PROFILES["fast"])
     cfg = wideband.WidebandConfig(**base, **prof)
-    assert wideband._tmajor_fused_ok(cfg)
+    assert chain.kernel_tail_ok(cfg.chain_cfg, (64,))
     iq = ((rng.normal(size=(1, base["chunk_in"]))
            + 1j * rng.normal(size=(1, base["chunk_in"]))) * 0.05
           ).astype(np.complex64)

@@ -1,6 +1,6 @@
 import numpy as np
 
-from supersdr_tpu.io.gnss import GnssTimekeeper
+from supersdr_jax.io.gnss import GnssTimekeeper
 
 
 def feed_frames(tk, true_rate, n_frames, frame=512, start=1000.0):

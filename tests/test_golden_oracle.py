@@ -1,14 +1,14 @@
 """Golden-file tests against an independent scipy oracle (SURVEY.md §4):
 synthesize modulated IQ, write/read it through the KiwiSDR WAV path, demod
-with the TPU chain, and compare against a scipy implementation of the
+with the device chain, and compare against a scipy implementation of the
 documented semantics within the 40 dB SNR bound (BASELINE.md)."""
 
 import numpy as np
 import pytest
 import scipy.signal as sps
 
-from supersdr_tpu.io import wav
-from supersdr_tpu.runtime import chain
+from supersdr_jax.io import wav
+from supersdr_jax.runtime import chain
 
 FS = 12000
 AGC_OFF = dict(on=False)
@@ -39,7 +39,7 @@ def upsample_ref(audio12):
     interpolator and compare at 48 kHz."""
     import jax.numpy as jnp
 
-    from supersdr_tpu.ops import resample
+    from supersdr_jax.ops import resample
 
     plan, P = resample.design_interp(FS, 4 * FS)
     carry = resample.init_carry(plan)

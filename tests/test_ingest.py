@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from supersdr_tpu.parallel import ingest, mesh as mesh_mod, sharded_chain
-from supersdr_tpu.runtime import chain
+from supersdr_jax.parallel import ingest, mesh as mesh_mod, sharded_chain
+from supersdr_jax.runtime import chain
 
 
 def test_local_time_range_single_process():

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.io import kiwi_protocol as kp
-from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
-from supersdr_tpu.io.kiwi_client import (KiwiBadPasswordError, KiwiClient,
+from supersdr_jax.io import kiwi_protocol as kp
+from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+from supersdr_jax.io.kiwi_client import (KiwiBadPasswordError, KiwiClient,
                                          KiwiServerTerminatedConnection,
                                          KiwiTooBusyError)
 

@@ -5,10 +5,10 @@ main-loop UX, /root/reference/supersdr.py:179-1073, headless)."""
 import numpy as np
 import pytest
 
-from supersdr_tpu.apps.live_tui import LiveTui
-from supersdr_tpu.control.panadapter import Panadapter
-from supersdr_tpu.control.receiver import Receiver
-from supersdr_tpu.runtime import chain
+from supersdr_jax.apps.live_tui import LiveTui
+from supersdr_jax.control.panadapter import Panadapter
+from supersdr_jax.control.receiver import Receiver
+from supersdr_jax.runtime import chain
 
 FS = 12000
 AGC_OFF = dict(on=False, gain=50)
@@ -103,7 +103,7 @@ def test_dual_rx_single_device_program():
     """MAIN+SUB run as ONE batched device program with one jit signature
     across SUB add / drop / mode+tune changes (VERDICT r2 #4: channels
     are an array axis, not separate dispatches)."""
-    from supersdr_tpu.runtime import chain as chain_mod
+    from supersdr_jax.runtime import chain as chain_mod
 
     s = make_session(freq=14200.0)
     n = 2048
@@ -149,10 +149,10 @@ def test_dual_rx_single_device_program():
 def test_kiwi_tui_against_fake_server(tmp_path):
     """Full stack: `kiwi --tui` against the fake Kiwi, keys injected,
     audio recorded, frames rendered."""
-    from supersdr_tpu import cli
-    from supersdr_tpu.io import wav
-    from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
-    import supersdr_tpu.apps.live_tui as lt
+    from supersdr_jax import cli
+    from supersdr_jax.io import wav
+    from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    import supersdr_jax.apps.live_tui as lt
 
     t = np.arange(512 * 64) / FS
     iq = (0.2 * np.exp(2j * np.pi * 1000 * t)).astype(np.complex64)
@@ -169,7 +169,7 @@ def test_kiwi_tui_against_fake_server(tmp_path):
              "-f", "14200", "--mode", "USB", "-o", str(out),
              "--frames", "40", "--tui"])
         args.inject_keys = lambda: next(key_script, [])
-        from supersdr_tpu.apps.kiwi_session import run_kiwi_tui
+        from supersdr_jax.apps.kiwi_session import run_kiwi_tui
         rc = run_kiwi_tui(args)
         assert rc == 0
     finally:
@@ -206,7 +206,7 @@ def test_freq_entry_and_recording_and_clip_keys(tmp_path, monkeypatch):
     s.step(sig[:2048])          # triggers save
     wavs = [f for f in os.listdir(tmp_path) if f.endswith(".wav")]
     assert len(wavs) == 1
-    from supersdr_tpu.io import wav as wav_io
+    from supersdr_jax.io import wav as wav_io
     data, rate = wav_io.read_audio_wav(tmp_path / wavs[0])
     assert rate == 48000 and data.shape[1] == 2 and len(data) == 2 * 8192
 
@@ -227,9 +227,9 @@ def test_kiwi_tui_uses_server_waterfall(tmp_path):
     """With a W/F-capable server the TUI shows the wide-span server
     waterfall (kiwi_byte_to_db + autolevel) instead of native IQ rows,
     and zoom keys re-tune the W/F stream (SET zoom=.. start=..)."""
-    from supersdr_tpu import cli
-    from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
-    import supersdr_tpu.apps.live_tui as lt
+    from supersdr_jax import cli
+    from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    import supersdr_jax.apps.live_tui as lt
 
     t = np.arange(512 * 80) / FS
     iq = (0.2 * np.exp(2j * np.pi * 1000 * t)).astype(np.complex64)
@@ -247,7 +247,7 @@ def test_kiwi_tui_uses_server_waterfall(tmp_path):
              "-f", "14200", "--mode", "USB", "-o", str(tmp_path / "a.wav"),
              "--frames", "56", "--tui"])
         args.inject_keys = lambda: next(key_script, [])
-        from supersdr_tpu.apps.kiwi_session import run_kiwi_tui
+        from supersdr_jax.apps.kiwi_session import run_kiwi_tui
         assert run_kiwi_tui(args) == 0
     finally:
         lt.ansi_render = orig
@@ -259,7 +259,7 @@ def test_kiwi_tui_uses_server_waterfall(tmp_path):
 
 
 def test_parse_escape_sequences():
-    from supersdr_tpu.apps.live_tui import parse_escape
+    from supersdr_jax.apps.live_tui import parse_escape
     assert parse_escape("[A") == "UP"
     assert parse_escape("[5~") == "PGUP"
     assert parse_escape("[<0;41;7M") == ("MOUSE", "press", 40, 6, False)
@@ -320,9 +320,9 @@ def test_interactive_server_switch_and_revert(tmp_path):
     """`K` opens the server book; switching to a good server re-streams
     from it, switching to a busy one keeps the live server playing
     (reference connect_new + revert flow, supersdr.py:743-796)."""
-    from supersdr_tpu import cli
-    from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
-    import supersdr_tpu.apps.live_tui as lt
+    from supersdr_jax import cli
+    from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+    import supersdr_jax.apps.live_tui as lt
 
     t = np.arange(512 * 200) / FS
     iq = (0.2 * np.exp(2j * np.pi * 1000 * t)).astype(np.complex64)
@@ -359,7 +359,7 @@ def test_interactive_server_switch_and_revert(tmp_path):
             return ks
 
         args.inject_keys = keys
-        import supersdr_tpu.apps.kiwi_session as ks_mod
+        import supersdr_jax.apps.kiwi_session as ks_mod
         orig_create = lt.LiveTui.create
 
         def create_spy(*a, **kw):
@@ -381,7 +381,7 @@ def test_interactive_server_switch_and_revert(tmp_path):
     assert "staying" in joined or "refused" in joined, messages
     assert f"switched to 127.0.0.1:{srv_b.port}" in joined, messages
     # audio kept flowing across both the failed and successful switches
-    from supersdr_tpu.io import wav as wav_io
+    from supersdr_jax.io import wav as wav_io
     data, rate = wav_io.read_audio_wav(tmp_path / "sw.wav")
     assert rate == 48000 and len(data) > 4096
     # the good server actually served our SND stream after the switch
@@ -391,7 +391,7 @@ def test_interactive_server_switch_and_revert(tmp_path):
 
 def test_server_menu_renders_book(tmp_path):
     s = make_session()
-    from supersdr_tpu.control.kiwilist import KiwiList
+    from supersdr_jax.control.kiwilist import KiwiList
     book = tmp_path / "kiwi.list"
     book.write_text("KIWIHOST;KIWIPORT;KIWIPASSWORD;COMMENTS\n"
                     "kiwi1.example;8073;;alpha\nkiwi2.example;8074;;beta\n")
@@ -432,10 +432,10 @@ def test_mouse_click_outside_surface_ignored():
 def test_mouse_click_tunes_and_wheel_zooms(tmp_path):
     """Click on the span tunes the RX to the clicked frequency (reference
     click_freq, supersdr.py:836-873); wheel zooms."""
-    from supersdr_tpu.apps import tui
-    from supersdr_tpu.control.panadapter import Panadapter
-    from supersdr_tpu.control.receiver import Receiver
-    from supersdr_tpu.runtime import chain
+    from supersdr_jax.apps import tui
+    from supersdr_jax.control.panadapter import Panadapter
+    from supersdr_jax.control.receiver import Receiver
+    from supersdr_jax.runtime import chain
 
     cfg = chain.ChainConfig(mode="USB", chunk=2048, os_block=2048,
                             n_taps=129)

@@ -3,9 +3,9 @@ fake Kiwi (the dual-socket session structure of the reference app)."""
 
 import numpy as np
 
-from supersdr_tpu import cli
-from supersdr_tpu.io import wav
-from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+from supersdr_jax import cli
+from supersdr_jax.io import wav
+from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
 
 
 def test_session_waterfall_and_iq_record(tmp_path, rng):
@@ -29,7 +29,7 @@ def test_session_waterfall_and_iq_record(tmp_path, rng):
     finally:
         server.stop()
 
-    from supersdr_tpu.display.png import read_png_size
+    from supersdr_jax.display.png import read_png_size
     w, h = read_png_size(wf_png)
     assert w == 1024 and h > 10
 

@@ -12,9 +12,9 @@ import wave
 
 import numpy as np
 
-from supersdr_tpu.apps.monitor import MonitorCore, run_monitor
-from supersdr_tpu.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
-from supersdr_tpu.runtime import wideband
+from supersdr_jax.apps.monitor import MonitorCore, run_monitor
+from supersdr_jax.io.fake_kiwi import FakeKiwiConfig, FakeKiwiServer
+from supersdr_jax.runtime import wideband
 
 N_CHAN = 8
 FS = 12_000                      # wideband capture rate (8 × 1.5 kHz)
@@ -128,13 +128,13 @@ def test_monitor_live_against_fake_kiwi(tmp_path):
 
 def test_monitor_over_mesh_process():
     """The monitor runs unmodified over the MESH-sharded pipeline:
-    sharded_wideband.build's process fn (3-tuple return +
-    channel_order) plugs into MonitorCore and the activity list finds
+    sharded_wideband.build's process fn (3-tuple return, rows in bin
+    order) plugs into MonitorCore and the activity list finds
     the same carriers — BASELINE config 5, sharded, above the library
     level."""
     import jax
 
-    from supersdr_tpu.parallel import sharded_wideband
+    from supersdr_jax.parallel import sharded_wideband
 
     # chunk divisible by d*n_chan (the mesh constraint)
     cfg = wideband.WidebandConfig(fs_in=FS, n_chan=N_CHAN,
@@ -144,11 +144,7 @@ def test_monitor_over_mesh_process():
     proc = sharded_wideband.build(cfg, mesh)
     params = wideband.make_params(cfg)
 
-    def process_fn(p, st, iq):
-        return proc(p, st, iq)
-    process_fn.channel_order = proc.channel_order
-
-    core = MonitorCore(cfg, params=params, process_fn=process_fn,
+    core = MonitorCore(cfg, params=params, process_fn=proc,
                        thresh_db=-40.0)
     z = _wideband_iq(FS)
     n = (len(z) // cfg.chunk_in) * cfg.chunk_in

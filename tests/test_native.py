@@ -4,14 +4,14 @@ implementations bit-for-bit."""
 import numpy as np
 import pytest
 
-from supersdr_tpu import native
+from supersdr_jax import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 
 def test_adpcm_decode_matches_python(rng):
-    from supersdr_tpu.ops import adpcm
+    from supersdr_jax.ops import adpcm
 
     data = bytes(rng.integers(0, 256, 1000, dtype=np.uint8))
     # python reference path (bypass the native fast path explicitly)
@@ -28,7 +28,7 @@ def test_adpcm_decode_matches_python(rng):
 
 
 def test_adpcm_encode_roundtrip(rng):
-    from supersdr_tpu.ops import adpcm
+    from supersdr_jax.ops import adpcm
 
     t = np.arange(4096) / 12000
     x = (6000 * np.sin(2 * np.pi * 500 * t)).astype(np.int16)
@@ -111,7 +111,7 @@ def test_ring_buffer_threads():
 
 
 def test_websocket_uses_native_mask(rng):
-    from supersdr_tpu.io.websocket import _apply_mask
+    from supersdr_jax.io.websocket import _apply_mask
 
     payload = bytes(rng.integers(0, 256, 5000, dtype=np.uint8))
     mask = b"\x12\x34\x56\x78"
@@ -124,8 +124,8 @@ def test_be16_iq_split_i16_matches_numpy():
     planes, the process_i16 ingest format) matches the numpy slicing
     path bit-exactly, and the protocol/client layers expose it."""
     import numpy as np
-    from supersdr_tpu import native
-    from supersdr_tpu.io import kiwi_protocol as kp
+    from supersdr_jax import native
+    from supersdr_jax.io import kiwi_protocol as kp
 
     rng = np.random.default_rng(0)
     n = 512

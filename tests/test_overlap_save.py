@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import firdesign, overlap_save
+from supersdr_jax.ops import firdesign, overlap_save
 
 
 def reference_stream_filter(taps, x, block):

@@ -1,298 +1,197 @@
-"""Pallas kernels in interpreter mode on CPU (compiled-mode parity runs on
-the real chip via bench/profiling)."""
+"""The GPU chain-tail kernel (ops/pallas/chain_tail.py): the Pallas
+interpreter on the CPU against the XLA tail, its lowering for CUDA, the
+wrapper's shapes and padding, and the choice of tail. The compiled kernel
+is checked on the card by the `gpu`-marked test at the end."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from supersdr_tpu.ops import channelizer
-from supersdr_tpu.ops.pallas import pfb_fold
+from supersdr_jax.ops.pallas import chain_tail
+from supersdr_jax.runtime import chain, wideband
 
 
-def test_pfb_fold_matches_xla_gather(rng):
-    M, K = 128, 8
-    plan, proto = channelizer.design(M, K)
-    W = channelizer.taps_matrix(plan, proto)
-    G = pfb_fold.fold_taps(plan, proto)
-    n = M * 512
-    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-    carry = channelizer.init_carry(plan)
-
-    _, ref = channelizer.channelize(plan, W, carry, jnp.asarray(x))
-    carry2, got = pfb_fold.channelize_pallas(plan, G, carry, jnp.asarray(x),
-                                             interpret=True)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-4, atol=1e-4)
-    assert carry2.shape == (plan.history,)
-
-
-def test_pfb_fold_streaming_carry(rng):
-    M, K = 128, 4
-    plan, proto = channelizer.design(M, K)
-    G = pfb_fold.fold_taps(plan, proto)
-    n = M * 512
-    x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
-    carry = channelizer.init_carry(plan)
-    _, full = pfb_fold.channelize_pallas(plan, G, carry, jnp.asarray(x),
-                                         interpret=True)
-    carry = channelizer.init_carry(plan)
-    carry, p1 = pfb_fold.channelize_pallas(plan, G, carry,
-                                           jnp.asarray(x[: n // 2]),
-                                           interpret=True)
-    _, p2 = pfb_fold.channelize_pallas(plan, G, carry,
-                                       jnp.asarray(x[n // 2:]),
-                                       interpret=True)
-    got = np.concatenate([np.asarray(p1), np.asarray(p2)], axis=-1)
-    np.testing.assert_allclose(got, np.asarray(full), atol=1e-4)
+def _tail_inputs(mode, hang, squelch, C=40, n=256, seed=0, thresh=-60.0):
+    """A chain config and params for the tail alone, plus a passband
+    output y with per-channel levels spread over ±40 dB (so squelch opens
+    on some channels and closes on others) and per-channel RSSI."""
+    cfg = chain.ChainConfig(mode=mode, iq_rate=12000, audio_rate=48000,
+                            chunk=n, os_block=n, n_taps=33,
+                            nco_enabled=False, hang_enabled=hang,
+                            squelch_enabled=squelch)
+    params = chain.make_params(
+        cfg, freq_offset_hz=np.zeros(C), agc_kwargs=dict(hang=hang),
+        squelch_kwargs=dict(enabled=squelch, thresh_db=thresh))
+    rng = np.random.default_rng(seed)
+    level = np.exp(rng.normal(size=(C, 1)) * 2.0) * 0.1
+    y = jnp.asarray((rng.normal(size=(C, n))
+                     + 1j * rng.normal(size=(C, n))) * level, jnp.complex64)
+    rssi = jnp.asarray(rng.normal(size=(C, 1)) * 20.0 - 60.0, jnp.float32)
+    return cfg, params, y, rssi
 
 
-def test_fused_channelizer_matches_legacy(rng):
-    """The fully-fused Pallas channelizer (fold + both DIF FFT stages in
-    one VMEM pass) matches channelize_c in interpret mode, including the
-    streaming carry and the bf16 stage-B tier's tolerance."""
-    import jax
-    import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops.pallas import channelize_fused as cf
-
-    M, K, nf = 2560, 8, 256
-    plan, proto = ch.design(M, K)
-    W = ch.taps_matrix(plan, proto)
-    carry = jnp.zeros(plan.history, jnp.complex64)
-    x = jnp.asarray((rng.normal(size=M * nf)
-                     + 1j * rng.normal(size=M * nf)).astype(np.complex64))
-    _, ref = ch.channelize_c(plan, W, carry, x)
-    for bf16, tol in [(False, 1e-5), (True, 3e-3)]:
-        _, got = jax.jit(lambda c, xx, b=bf16: cf.channelize_fused_c(
-            plan, W, c, xx, bf16_mxu=b, interpret=True, tile_t=64))(carry, x)
-        err = float(np.linalg.norm(np.asarray(got) - np.asarray(ref))
-                    / np.linalg.norm(np.asarray(ref)))
-        assert err < tol, (bf16, err)
-    # streaming continuity
-    f = jax.jit(lambda c, xx: cf.channelize_fused_c(
-        plan, W, c, xx, bf16_mxu=False, interpret=True, tile_t=64))
-    ca, ya = f(carry, x[: M * (nf // 2)])
-    _, yb = f(ca, x[M * (nf // 2):])
-    y2 = np.concatenate([np.asarray(ya), np.asarray(yb)], axis=-1)
-    assert np.abs(y2 - np.asarray(ref)).max() < 1e-5
+def _run_tail(tail, cfg, params, y, rssi, n_chunks=2):
+    f = jax.jit(tail, static_argnums=0)
+    st = chain.init_state(cfg, y.shape[:1])
+    audio = []
+    for _ in range(n_chunks):
+        dstate, astate, sq, icarry, a = f(cfg, params, st, y, rssi)
+        st = st._replace(demod=dstate, agc=astate, squelch=sq,
+                         interp_carry=icarry)
+        audio.append(np.asarray(a))
+    return np.concatenate(audio, axis=-1), st
 
 
-def test_fused_channelizer_small_nchan_fallback(rng):
-    """n_chan without a lane-multiple factor routes through the XLA mxu2
-    fallback inside the wideband pipeline (the SMALL integrity gate's
-    path) — same audio as the plain config."""
-    from supersdr_tpu.runtime import wideband
-
-    base = dict(fs_in=192_000, n_chan=16, chunk_in=16_384, mode="AM",
-                taps_per=8, n_taps=129, audio_rate=48_000)
-    iq = ((rng.normal(size=(1, 16_384))
-           + 1j * rng.normal(size=(1, 16_384))) * 0.05
-          ).astype(np.complex64)
-    outs = {}
-    for impl in ("legacy", "mxu2fused"):
-        cfg = wideband.WidebandConfig(**base, chan_impl=impl)
-        p = wideband.make_params(cfg)
-        _, audio = wideband.process_many(cfg, p, wideband.init_state(cfg),
-                                         iq)
-        outs[impl] = np.asarray(audio)
-    err = np.abs(outs["mxu2fused"] - outs["legacy"]).max()
-    assert err < 1e-4 * np.abs(outs["legacy"]).max()
+def _interp(cfg, params, st, y, rssi):
+    return chain.tail_kernel(cfg, params, st, y, rssi, interpret=True)
 
 
-def test_fused_chain_tail_matches_xla(rng):
-    """tail_impl='pallas' (fused demod+DC+AGC+resample, interpret mode)
-    equals the XLA chain tail through the full wideband pipeline,
-    including chunk-chained streaming state."""
-    from supersdr_tpu.runtime import wideband
+@pytest.mark.parametrize("squelch", [False, True], ids=["sq0", "sq1"])
+@pytest.mark.parametrize("hang", [False, True], ids=["hang0", "hang1"])
+@pytest.mark.parametrize("mode", ["AM", "USB", "CW", "NBFM"])
+def test_kernel_tail_matches_xla_tail(mode, hang, squelch):
+    """Demod, AGC (hang), squelch and resampler of the kernel equal the
+    XLA ops over two state-chained chunks, audio and every state leaf.
+    40 channels exercise the padding to whole 32-channel programs; the
+    chunk is shorter than the hang window, where the block-granular hang
+    is exact."""
+    cfg, params, y, rssi = _tail_inputs(mode, hang, squelch)
+    ref, st_ref = _run_tail(chain.tail_xla, cfg, params, y, rssi)
+    got, st_got = _run_tail(_interp, cfg, params, y, rssi)
+    scale = np.abs(ref).max()
+    assert scale > 0
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale)
+    # state leaves include dB quantities (AGC peak and gain), summed in
+    # another order by the XLA scans: 1e-3 dB
+    for a, b in zip(jax.tree.leaves(st_ref), jax.tree.leaves(st_got)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a),
+                                   rtol=1e-4, atol=1e-3)
 
-    base = dict(fs_in=128 * 12000, n_chan=128, chunk_in=128 * 1008,
-                mode="AM", taps_per=8, n_taps=257, audio_rate=48_000,
-                passband_impl="matmul", passband_precision="highest")
+
+def test_fused_chain_tail_matches_xla(rng, kernel_tail):
+    """tail_impl='auto' on a GPU (the kernel, interpreted here) equals the
+    XLA chain tail through the full wideband pipeline at the fast
+    profile, including chunk-chained streaming state."""
+    base = dict(fs_in=64 * 12000, n_chan=64, chunk_in=64 * 512,
+                mode="AM", taps_per=8, n_taps=129, audio_rate=48_000,
+                **wideband.PROFILES["quality"])
     iq = ((rng.normal(size=(2, base["chunk_in"]))
            + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
           ).astype(np.complex64)
     outs = {}
-    for tail in ("xla", "pallas"):
+    for tail in ("xla", "auto"):
         cfg = wideband.WidebandConfig(**base, tail_impl=tail)
         p = wideband.make_params(cfg)
         _, audio = wideband.process_many(cfg, p, wideband.init_state(cfg),
                                          iq)
         outs[tail] = np.asarray(audio)
-    err = np.abs(outs["pallas"] - outs["xla"]).max()
-    assert err < 1e-3 * np.abs(outs["xla"]).max()
+    err = np.abs(outs["auto"] - outs["xla"]).max()
+    assert err < 1e-4 * np.abs(outs["xla"]).max()
 
 
-def test_fused_chain_tail_fallback_conditions(rng):
-    """Static conditions the fused tail cannot serve (non-AM mode,
-    non-lane batch) silently fall back to the XLA path — identical
-    output to tail_impl='xla'."""
-    from supersdr_tpu.runtime import wideband
-
-    # 16 channels (not a lane multiple) → fallback inside the chain
-    base = dict(fs_in=192_000, n_chan=16, chunk_in=32_768, mode="AM",
-                taps_per=8, n_taps=257, audio_rate=48_000)
-    iq = ((rng.normal(size=(1, base["chunk_in"]))
-           + 1j * rng.normal(size=(1, base["chunk_in"]))) * 0.05
-          ).astype(np.complex64)
-    outs = {}
-    for tail in ("xla", "pallas"):
-        cfg = wideband.WidebandConfig(**base, tail_impl=tail)
-        p = wideband.make_params(cfg)
-        _, audio = wideband.process_many(cfg, p, wideband.init_state(cfg),
-                                         iq)
-        outs[tail] = np.asarray(audio)
-    assert np.array_equal(outs["pallas"], outs["xla"])
+def test_fused_chain_tail_fallback_conditions(rng, kernel_tail):
+    """Configurations the kernel does not cover (IQ and MULTI modes,
+    rational resampling, decimated AGC, a chunk that is not whole kernel
+    tiles, a 2-D batch) take the XLA tail, with output identical to
+    tail_impl='xla'."""
+    base = dict(iq_rate=12000, audio_rate=48000, chunk=512, os_block=512,
+                n_taps=33, nco_enabled=False)
+    covered = chain.ChainConfig(**base)
+    assert chain.kernel_tail_ok(covered, (8,))
+    for cfg, batch in [
+            (chain.ChainConfig(**base, mode="IQ"), (8,)),
+            (chain.ChainConfig(**base, mode="MULTI"), (8,)),
+            (chain.ChainConfig(**{**base, "iq_rate": 20250,
+                                  "chunk": 27 * 16, "os_block": 27 * 16}),
+             (8,)),
+            (chain.ChainConfig(**base, agc_decimation=4), (8,)),
+            (chain.ChainConfig(**{**base, "chunk": 520, "os_block": 520}),
+             (8,)),
+            (covered, (2, 4))]:
+        assert not chain.kernel_tail_ok(cfg, batch), cfg
+    cfg = chain.ChainConfig(**{**base, "chunk": 520, "os_block": 520})
+    iq = ((rng.normal(size=(8, 520)) + 1j * rng.normal(size=(8, 520)))
+          * 0.1).astype(np.complex64)
+    p = chain.make_params(cfg, freq_offset_hz=np.zeros(8))
+    _, auto = chain.process(cfg, p, chain.init_state(cfg, (8,)), iq)
+    cfg_x = chain.ChainConfig(**{**base, "chunk": 520, "os_block": 520,
+                                 "tail_impl": "xla"})
+    _, xla = chain.process(cfg_x, p, chain.init_state(cfg_x, (8,)), iq)
+    assert np.array_equal(np.asarray(auto.audio), np.asarray(xla.audio))
 
 
 def test_fused_chain_tail_upsample_sweep(rng):
-    """The fused tail honors the config's actual upsample factor
-    (regression: the chain once left L at its default of 4, indexing
-    out of the L=1 tap table)."""
-    from supersdr_tpu.runtime import wideband
-
-    iq = ((rng.normal(size=(1, 128 * 1008))
-           + 1j * rng.normal(size=(1, 128 * 1008))) * 0.05
-          ).astype(np.complex64)
-    for audio_rate in (12_000, 24_000):
-        base = dict(fs_in=128 * 12000, n_chan=128, chunk_in=128 * 1008,
-                    mode="AM", taps_per=8, n_taps=257,
-                    audio_rate=audio_rate, passband_impl="matmul")
-        outs = {}
-        for tail in ("xla", "pallas"):
-            cfg = wideband.WidebandConfig(**base, tail_impl=tail)
-            p = wideband.make_params(cfg)
-            _, audio = wideband.process_many(cfg, p,
-                                             wideband.init_state(cfg), iq)
-            outs[tail] = np.asarray(audio)
-        err = np.abs(outs["pallas"] - outs["xla"]).max()
-        assert err < 1e-3 * np.abs(outs["xla"]).max(), audio_rate
+    """The kernel honors the config's upsample factor L (1, 2 and 4)."""
+    for audio_rate in (12_000, 24_000, 48_000):
+        cfg, params, y, rssi = _tail_inputs("AM", False, False, C=32,
+                                            n=128)
+        cfg = chain.ChainConfig(**{**cfg.__dict__, "audio_rate": audio_rate})
+        params = chain.make_params(cfg, freq_offset_hz=np.zeros(32))
+        ref, _ = _run_tail(chain.tail_xla, cfg, params, y, rssi)
+        got, _ = _run_tail(_interp, cfg, params, y, rssi)
+        assert got.shape == (32, 2 * 128 * audio_rate // 12000)
+        assert np.abs(got - ref).max() < 1e-5 * np.abs(ref).max()
 
 
-def test_fused_channelizer_long_taps(rng):
-    """taps_per >= 10 (K-1 > 8 carry rows) works: the history head is
-    sized HR = round_up8(K-1) instead of the fixed 8 rows that made any
-    K >= 10 crash at trace time (ADVICE r4)."""
-    import jax
-    import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops.pallas import channelize_fused as cf
-
-    M, K, nf = 2560, 12, 64
-    plan, proto = ch.design(M, K)
-    W = ch.taps_matrix(plan, proto)
-    carry = jnp.zeros(plan.history, jnp.complex64)
-    x = jnp.asarray((rng.normal(size=M * nf)
-                     + 1j * rng.normal(size=M * nf)).astype(np.complex64))
-    _, ref = ch.channelize_c(plan, W, carry, x)
-    f = jax.jit(lambda c, xx: cf.channelize_fused_c(
-        plan, W, c, xx, bf16_mxu=False, interpret=True, tile_t=32))
-    ca, ya = f(carry, x[: M * (nf // 2)])
-    _, yb = f(ca, x[M * (nf // 2):])
-    got = np.concatenate([np.asarray(ya), np.asarray(yb)], axis=-1)
-    err = float(np.linalg.norm(got - np.asarray(ref))
-                / np.linalg.norm(np.asarray(ref)))
-    assert err < 1e-5, err
+def test_auto_tail_is_xla_on_cpu(rng):
+    """On the CPU, tail_impl='auto' is the XLA tail itself: no kernel,
+    no interpreter."""
+    base = dict(iq_rate=12000, audio_rate=48000, chunk=256, os_block=256,
+                n_taps=33, nco_enabled=False)
+    iq = ((rng.normal(size=(32, 256)) + 1j * rng.normal(size=(32, 256)))
+          * 0.1).astype(np.complex64)
+    outs = []
+    for tail in ("auto", "xla"):
+        cfg = chain.ChainConfig(**base, tail_impl=tail)
+        p = chain.make_params(cfg, freq_offset_hz=np.zeros(32))
+        _, out = chain.process(cfg, p, chain.init_state(cfg, (32,)), iq)
+        outs.append(np.asarray(out.audio))
+        jaxpr = jax.make_jaxpr(chain.process_traced, static_argnums=0)(
+            cfg, p, chain.init_state(cfg, (32,)),
+            chain.cx.as_cx(iq))
+        assert "pallas_call" not in str(jaxpr)
+    assert np.array_equal(outs[0], outs[1])
 
 
-def test_fused_channelizer_factors_override_and_pad(rng):
-    """The DIF factoring override (n1, n2) = (20, 128) and the raw3
-    zero-plane padding (n1_pad) produce the same channels as the default
-    factoring — the mesh's power-of-two-device planar coupling."""
-    import jax
-    import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops.pallas import channelize_fused as cf
-
-    M, K, nf = 2560, 8, 64
-    n1, n2, n1p = 20, 128, 24
-    plan, proto = ch.design(M, K)
-    W = ch.taps_matrix(plan, proto)
-    carry = jnp.zeros(plan.history, jnp.complex64)
-    x = jnp.asarray((rng.normal(size=M * nf)
-                     + 1j * rng.normal(size=M * nf)).astype(np.complex64))
-    _, ref = ch.channelize_c(plan, W, carry, x)      # [M(bin), nf]
-    _, (rr, ri) = jax.jit(lambda c, xx: cf.channelize_fused_c(
-        plan, W, c, xx, bf16_mxu=False, interpret=True, tile_t=32,
-        out_layout="raw3", factors=(n1, n2), n1_pad=n1p))(carry, x)
-    rr, ri = np.asarray(rr), np.asarray(ri)
-    assert rr.shape == (n1p, nf, n2)
-    assert np.all(rr[n1:] == 0) and np.all(ri[n1:] == 0)
-    # raw plane (k1, t, k2) holds bin m = k2*n1 + k1
-    got = (rr[:n1] + 1j * ri[:n1]).transpose(2, 0, 1).reshape(M, nf)
-    err = float(np.linalg.norm(got - np.asarray(ref))
-                / np.linalg.norm(np.asarray(ref)))
-    assert err < 1e-5, err
+def test_tail_wrapper_rejects_bad_shapes():
+    P = np.ones((9, 4))
+    st = jnp.zeros((chain_tail.state_rows(9), 32))
+    par = jnp.zeros(chain_tail.N_PAR)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        chain_tail.chain_tail(jnp.zeros((100, 32)), st, par, P,
+                              dc_block=True, interpret=True)
+    with pytest.raises(ValueError, match="state must be"):
+        chain_tail.chain_tail(jnp.zeros((64, 32)), st[:3], par, P,
+                              dc_block=True, interpret=True)
+    assert chain_tail.hang_block(16128) == 256
+    assert chain_tail.hang_block(512) == 256
+    assert chain_tail.hang_block(48) == 48
 
 
-def test_fused_channelizer_stageb_split2(rng):
-    """Radix-2 stage-B split (r5 quality-gap attack): half the stage-B
-    MXU MACs; raw columns come out [even k2 | odd k2]
-    (`channelizer.stageb_col_to_k2`). Aligned through the column map the
-    split output equals the unsplit kernel on both precision tiers."""
-    import jax
-    import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops.pallas import channelize_fused as cf
-
-    M, K, nf = 512, 8, 64
-    plan, proto = ch.design(M, K)
-    W = ch.taps_matrix(plan, proto)
-    carry = jnp.zeros(plan.history, jnp.complex64)
-    x = jnp.asarray((rng.normal(size=M * nf)
-                     + 1j * rng.normal(size=M * nf)).astype(np.complex64))
-    n1, n2 = ch._pick_factors(M)
-    assert n2 == 256 and ch.stageb_split_ok(n2)
-    col_of_k2 = np.argsort(ch.stageb_col_to_k2(n2, True))
-    for bf16, tol in [(False, 1e-4), (True, 6e-3)]:
-        _, (r0, i0) = jax.jit(lambda c, xx, b=bf16: cf.channelize_fused_c(
-            plan, W, c, xx, bf16_mxu=b, interpret=True, tile_t=64,
-            out_layout="raw3"))(carry, x)
-        _, (r1, i1) = jax.jit(lambda c, xx, b=bf16: cf.channelize_fused_c(
-            plan, W, c, xx, bf16_mxu=b, interpret=True, tile_t=64,
-            out_layout="raw3", split2=True))(carry, x)
-        a0 = np.asarray(r0) + 1j * np.asarray(i0)
-        a1 = (np.asarray(r1) + 1j * np.asarray(i1))[:, :, col_of_k2]
-        err = float(np.linalg.norm(a1 - a0) / np.linalg.norm(a0))
-        assert err < tol, (bf16, err)
-    # split2 is raw3-only and needs both column halves lane-aligned
-    with pytest.raises(ValueError):
-        cf.channelize_fused_c(plan, W, carry, x, interpret=True,
-                              out_layout="time", split2=True)
-    plan128, proto128 = ch.design(2560, K)
-    W128 = ch.taps_matrix(plan128, proto128)
-    with pytest.raises(ValueError):
-        cf.channelize_fused_c(
-            plan128, W128, jnp.zeros(plan128.history, jnp.complex64),
-            jnp.asarray(np.zeros(2560 * 8, np.complex64)),
-            interpret=True, out_layout="raw3", factors=(20, 128),
-            split2=True)
+@pytest.mark.parametrize("mode,hang,squelch",
+                         [("AM", False, False), ("NBFM", True, True)])
+def test_kernel_tail_lowers_for_cuda(mode, hang, squelch):
+    """The kernel lowers through Pallas' Triton route for CUDA at the
+    headline's 2560 channels (every primitive has a Triton lowering)."""
+    cfg, params, _, _ = _tail_inputs(mode, hang, squelch, C=2560, n=512)
+    st = chain.init_state(cfg, (2560,))
+    y = jax.ShapeDtypeStruct((2560, 512), jnp.complex64)
+    rssi = jax.ShapeDtypeStruct((2560, 1), jnp.float32)
+    lowered = jax.jit(chain.tail_kernel, static_argnums=0).trace(
+        cfg, params, st, y, rssi).lower(lowering_platforms=("cuda",))
+    text = lowered.as_text()
+    assert text.count("__gpu$xla.gpu.triton") == 1
+    assert "grid_x = 80" in text
 
 
-def test_fused_channelizer_stageb_split_two_levels(rng):
-    """The generalized L-level stage-B split (r5): two levels on a
-    (2, 512) factoring — stage-B MACs quartered, columns ordered by
-    stageb_col_to_k2(512, 2) (bit-reversed block index)."""
-    import jax
-    import jax.numpy as jnp
-    from supersdr_tpu.ops import channelizer as ch
-    from supersdr_tpu.ops.pallas import channelize_fused as cf
-
-    M, K, nf = 1024, 8, 64
-    n1, n2 = 2, 512
-    plan, proto = ch.design(M, K)
-    W = ch.taps_matrix(plan, proto)
-    carry = jnp.zeros(plan.history, jnp.complex64)
-    x = jnp.asarray((rng.normal(size=M * nf)
-                     + 1j * rng.normal(size=M * nf)).astype(np.complex64))
-    assert ch.stageb_split_ok(n2, 2) and not ch.stageb_split_ok(n2, 3)
-    col_of_k2 = np.argsort(ch.stageb_col_to_k2(n2, 2))
-    _, (r0, i0) = jax.jit(lambda c, xx: cf.channelize_fused_c(
-        plan, W, c, xx, bf16_mxu=False, interpret=True, tile_t=64,
-        out_layout="raw3", factors=(n1, n2)))(carry, x)
-    _, (r1, i1) = jax.jit(lambda c, xx: cf.channelize_fused_c(
-        plan, W, c, xx, bf16_mxu=False, interpret=True, tile_t=64,
-        out_layout="raw3", factors=(n1, n2), split_levels=2))(carry, x)
-    a0 = np.asarray(r0) + 1j * np.asarray(i0)
-    a1 = (np.asarray(r1) + 1j * np.asarray(i1))[:, :, col_of_k2]
-    err = float(np.linalg.norm(a1 - a0) / np.linalg.norm(a0))
-    assert err < 1e-4, err
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["AM", "NBFM"])
+def test_compiled_kernel_tail_matches_xla_tail(gpu, mode):
+    """The kernel compiled for the card against the XLA tail on the card,
+    hang and squelch on."""
+    cfg, params, y, rssi = _tail_inputs(mode, True, True, C=256, n=512)
+    with jax.default_matmul_precision("highest"):
+        ref, _ = _run_tail(chain.tail_xla, cfg, params, y, rssi)
+        got, _ = _run_tail(chain.tail_kernel, cfg, params, y, rssi)
+    assert np.abs(got - ref).max() < 1e-4 * np.abs(ref).max()

@@ -4,8 +4,8 @@ match the serial wideband sample-exactly, microbatch by microbatch."""
 import numpy as np
 import jax
 
-from supersdr_tpu.parallel import pipeline
-from supersdr_tpu.runtime import wideband
+from supersdr_jax.parallel import pipeline
+from supersdr_jax.runtime import wideband
 
 AGC_OFF = dict(on=False, man_gain_db=50.0)
 

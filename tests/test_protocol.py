@@ -1,7 +1,7 @@
 import numpy as np
 
-from supersdr_tpu.io import kiwi_protocol as kp
-from supersdr_tpu.io.status import KiwiStatus, KiwiBusy, KiwiOffline
+from supersdr_jax.io import kiwi_protocol as kp
+from supersdr_jax.io.status import KiwiStatus, KiwiBusy, KiwiOffline
 import pytest
 
 

@@ -1,9 +1,9 @@
 import numpy as np
 
-from supersdr_tpu.control.links import LinkController
-from supersdr_tpu.control.panadapter import Panadapter
-from supersdr_tpu.control.receiver import AGCSettings, Flags, Receiver
-from supersdr_tpu.runtime import chain
+from supersdr_jax.control.links import LinkController
+from supersdr_jax.control.panadapter import Panadapter
+from supersdr_jax.control.receiver import AGCSettings, Flags, Receiver
+from supersdr_jax.runtime import chain
 
 
 def small_cfg(mode="USB"):

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import firdesign, resample
+from supersdr_jax.ops import firdesign, resample
 
 
 def reference_upsample(x, L, taps, old_buffer):
@@ -110,7 +110,7 @@ def test_interpolate_impls_agree(rng):
     outputs must agree to float accumulation order."""
     import jax.numpy as jnp
 
-    from supersdr_tpu.ops import resample
+    from supersdr_jax.ops import resample
     plan, P = resample.design_interp(12000, 48000)
     x = rng.normal(size=(3, 4096)).astype(np.float32)
     carry = resample.init_carry(plan, (3,))

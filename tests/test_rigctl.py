@@ -4,7 +4,7 @@ import time
 
 import pytest
 
-from supersdr_tpu.io.rigctl import CatClient, RigctldServer
+from supersdr_jax.io.rigctl import CatClient, RigctldServer
 
 
 class FakeRig:

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.runtime.engine import (EngineConfig, SourceBusy,
+from supersdr_jax.runtime.engine import (EngineConfig, SourceBusy,
                                          SourceClosed, StreamEngine)
-from supersdr_tpu.runtime.governor import DriftCompensator, LatencyGovernor
-from supersdr_tpu.runtime.ring import FrameBuffer
+from supersdr_jax.runtime.governor import DriftCompensator, LatencyGovernor
+from supersdr_jax.runtime.ring import FrameBuffer
 
 
 def test_drift_double_read_cadence():

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import scans
+from supersdr_jax.ops import scans
 
 
 def ref_linear(a, b, y0):
@@ -84,7 +84,7 @@ def test_sliding_max_matches_naive(rng):
 
 def test_linear_scan_const_matches_general(rng):
     import jax.numpy as jnp
-    from supersdr_tpu.ops import scans
+    from supersdr_jax.ops import scans
     b = rng.normal(size=(3, 1024)).astype(np.float32)
     for a in (0.999, 0.9, 0.5):
         ref = scans.linear_scan(np.full_like(b, a), b, 0.25)
@@ -101,7 +101,7 @@ def test_linear_scan_const_matches_general(rng):
 
 def test_maxplus_scan_const_matches_general(rng):
     import jax.numpy as jnp
-    from supersdr_tpu.ops import scans
+    from supersdr_jax.ops import scans
     b = (20 * rng.normal(size=(2, 2048)) - 60).astype(np.float32)
     for d in (0.00125, 0.0125, 0.2):
         a = np.full_like(b, -d)

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from supersdr_tpu.parallel import mesh as mesh_mod
-from supersdr_tpu.parallel import sharded_chain
-from supersdr_tpu.runtime import chain
+from supersdr_jax.parallel import mesh as mesh_mod
+from supersdr_jax.parallel import sharded_chain
+from supersdr_jax.runtime import chain, wideband
 
 AGC_ON = dict(on=True, thresh_db=-80, decay_ms=1000)
 
@@ -112,7 +112,7 @@ def test_streaming_state_chains_across_calls():
 def test_sharded_scan_primitives():
     """Direct check of the cross-shard scan machinery on an 8-device mesh."""
     from jax.sharding import PartitionSpec as P
-    from supersdr_tpu.ops import scans
+    from supersdr_jax.ops import scans
 
     devs = jax.devices()
     m = jax.sharding.Mesh(np.asarray(devs), ("t",))
@@ -193,8 +193,8 @@ def test_sharded_wideband_fast_profile_matches_serial():
     (mxu2 DIF + f16 fold + matmul passband/resampler): the 8-device
     sharded wideband equals the serial pipeline on the same config."""
     import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.parallel import sharded_wideband
+    from supersdr_jax.runtime import wideband
 
     cfg = wideband.WidebandConfig(fs_in=96_000, n_chan=8,
                                   chunk_in=8 * 8 * 512, mode="AM",
@@ -214,28 +214,21 @@ def test_sharded_wideband_fast_profile_matches_serial():
     assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
 
 
-def test_sharded_wideband_runs_pallas_kernels_on_mesh():
-    """Round-4: the mesh runs the SAME kernel enum the bench ships —
-    fused Pallas channelizer (n_chan=512 has the (2,256) factor tree)
-    and the fused Pallas chain tail (256 channels per shard on a
-    2-device mesh). Interpret-mode on CPU; the identical call graph
-    compiles to real Mosaic kernels on a TPU mesh
-    (benchmarks/probe_pallas_shardmap.py)."""
+def test_sharded_wideband_runs_pallas_kernels_on_mesh(kernel_tail):
+    """The mesh runs the same kernel tail the serial pipeline ships, per
+    shard (256 channels each on a 2-device mesh), interpreted here; the
+    identical call graph compiles to the Triton kernel on a GPU mesh.
+    Rows are in bin order on both sides."""
     import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import chain as chain_mod
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.parallel import sharded_wideband
+    from supersdr_jax.runtime import chain as chain_mod
+    from supersdr_jax.runtime import wideband
 
     cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
                                   chunk_in=2 * 512 * 128, mode="AM",
                                   taps_per=4, n_taps=129,
                                   **wideband.PROFILES["fast"])
-    # preconditions for the Pallas paths (if these drift the test is
-    # silently weaker — assert them)
-    from supersdr_tpu.ops import channelizer as chz
-    fac = chz._pick_factors(cfg.n_chan)
-    assert fac is not None and fac[1] % 128 == 0
-    assert chain_mod._pallas_tail_ok(cfg.chain_cfg, (512 // 2,))
+    assert chain_mod.kernel_tail_ok(cfg.chain_cfg, (512 // 2,))
     m = sharded_wideband.make_mesh(jax.devices()[:2])
     proc = sharded_wideband.build(cfg, m)
     p = wideband.make_params(cfg)
@@ -245,44 +238,35 @@ def test_sharded_wideband_runs_pallas_kernels_on_mesh():
           ).astype(np.complex64)
     sstate = wideband.init_state(cfg)
     state = wideband.init_state(cfg)
-    # row -> bin maps: proc.channel_order for the mesh (planar when
-    # d | n1, bin otherwise), audio_channel_order for the serial path
-    mo = proc.channel_order
-    so = wideband.audio_channel_order(cfg)
-    # this config is planar on both sides (d=2 divides n1)
-    assert np.array_equal(mo, so)
-    minv = np.argsort(mo)
-    sinv = np.argsort(so)
     for k in range(2):     # two chunks: carried state must thread right
         sstate, audio, rssi = proc(p, sstate, iq[k])
         state, out = wideband.process(cfg, p, state, iq[k])
-        got = np.asarray(audio)[:, minv]        # -> bin order
-        want = np.asarray(out.audio)[:, sinv]   # -> bin order
+        got = np.asarray(audio)
+        want = np.asarray(out.audio)
         assert np.abs(got - want).max() < 1e-4 * max(np.abs(want).max(),
                                                      1e-9)
-        np.testing.assert_allclose(np.asarray(rssi)[minv][:, 0],
-                                   np.asarray(out.rssi)[:, 0][sinv],
-                                   atol=0.01)
+        np.testing.assert_allclose(np.asarray(rssi)[:, 0],
+                                   np.asarray(out.rssi)[:, 0], atol=0.01)
 
 
-def test_pallas_tail_pads_non_lane_batches():
-    """A 320-channel batch (2560/8 mesh shard) runs the Pallas tail with
-    the channel axis zero-padded to 384 and matches the XLA tail."""
+def test_pallas_tail_pads_non_lane_batches(kernel_tail):
+    """A 300-channel batch (not whole 32-channel kernel programs) runs
+    the kernel tail with the channel axis zero-padded to 320 and matches
+    the XLA tail."""
     import dataclasses
-    from supersdr_tpu.ops import cx
 
     cfg = chain.ChainConfig(mode="AM", iq_rate=12000, audio_rate=48000,
                             chunk=1024, os_block=1024, n_taps=129,
-                            nco_enabled=False, tail_impl="pallas")
-    assert chain._pallas_tail_ok(cfg, (320,))
+                            nco_enabled=False)
+    assert chain.kernel_tail_ok(cfg, (300,))
     cfg_x = dataclasses.replace(cfg, tail_impl="xla")
     p = chain.make_params(cfg)
     rng = np.random.default_rng(7)
-    iq = ((rng.normal(size=(320, cfg.chunk))
-           + 1j * rng.normal(size=(320, cfg.chunk))) * 0.1
+    iq = ((rng.normal(size=(300, cfg.chunk))
+           + 1j * rng.normal(size=(300, cfg.chunk))) * 0.1
           ).astype(np.complex64)
-    st_p = chain.init_state(cfg, (320,))
-    st_x = chain.init_state(cfg_x, (320,))
+    st_p = chain.init_state(cfg, (300,))
+    st_x = chain.init_state(cfg_x, (300,))
     for _ in range(2):
         st_p, out_p = chain.process(cfg, p, st_p, iq)
         st_x, out_x = chain.process(cfg_x, p, st_x, iq)
@@ -291,88 +275,43 @@ def test_pallas_tail_pads_non_lane_batches():
                                    rtol=2e-4, atol=1e-5)
 
 
-def test_sharded_wideband_planar_d4_exact_factoring():
-    """Round-5 VERDICT #1: a 4-device mesh rides the PLANAR
-    zero-transpose form via the per-device-count factoring choice —
-    512 = 4·128 admits d=4 exactly where the serial (2, 256) tree does
-    not. Sample-level agreement with the serial pipeline (different
-    factor tree → f32 summation-order noise only)."""
-    import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
+@pytest.mark.parametrize("d,n_chan", [(2, 512), (4, 512), (8, 2560)])
+def test_sharded_wideband_matches_serial_in_bin_order(d, n_chan):
+    """The mesh program (time-sharded channelizer, all_to_all, channel-
+    sharded chains) equals the serial pipeline at the fast profile, rows
+    in PFB bin order on both sides, state chained over two chunks."""
+    from supersdr_jax.parallel import sharded_wideband
 
     prof = dict(wideband.PROFILES["fast"])
-    prof.update(passband_precision="high", chan_precision="high",
-                chan_tile_t=64)
-    cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
-                                  chunk_in=512 * 256, mode="AM",
-                                  taps_per=4, n_taps=129, **prof)
-    m = sharded_wideband.make_mesh(jax.devices()[:4])
+    prof.update(passband_precision="high")
+    cfg = wideband.WidebandConfig(fs_in=n_chan * 12_000, n_chan=n_chan,
+                                  chunk_in=n_chan * 128, mode="AM",
+                                  taps_per=4, n_taps=65, **prof)
+    m = sharded_wideband.make_mesh(jax.devices()[:d])
     proc = sharded_wideband.build(cfg, m)
-    assert proc.planar and proc.planar_factors == (4, 128, 4)
     p = wideband.make_params(cfg)
     rng = np.random.default_rng(5)
     iq = ((rng.normal(size=(2, cfg.chunk_in))
            + 1j * rng.normal(size=(2, cfg.chunk_in))) * 0.05
           ).astype(np.complex64)
     mstate, sstate = wideband.init_state(cfg), wideband.init_state(cfg)
-    minv = np.argsort(proc.channel_order)
-    sinv = np.argsort(wideband.audio_channel_order(cfg))
     for k in range(2):
         mstate, audio, rssi = proc(p, mstate, iq[k])
         sstate, out = wideband.process(cfg, p, sstate, iq[k])
-        got = np.asarray(audio)[:, minv]
-        want = np.asarray(out.audio)[:, sinv]
+        got = np.asarray(audio)
+        want = np.asarray(out.audio)
         err = np.abs(got - want).max()
         assert err < 2e-4 * np.abs(want).max(), (k, err)
-        np.testing.assert_allclose(np.asarray(rssi)[minv][:, 0],
-                                   np.asarray(out.rssi)[sinv][:, 0],
-                                   atol=0.02)
-
-
-def test_sharded_wideband_planar_d8_padded_planes():
-    """d=8 on 2560 channels: no lane-multiple factoring divides by 8
-    (20 lane blocks, 2^2·5), so the kernel emits 4 zero planes
-    (n1 20 → 24, 20 % padded work) and the all_to_all splits the padded
-    plane axis — the planar program survives power-of-two pod slices
-    (VERDICT r4 #1). State/audio stay bin-ordered at the jit boundary."""
-    import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
-
-    prof = dict(wideband.PROFILES["fast"])
-    prof.update(passband_precision="high", chan_precision="high",
-                chan_tile_t=64)
-    cfg = wideband.WidebandConfig(fs_in=2560 * 12_000, n_chan=2560,
-                                  chunk_in=2560 * 128, mode="AM",
-                                  taps_per=4, n_taps=65, **prof)
-    m = sharded_wideband.make_mesh(jax.devices()[:8])
-    proc = sharded_wideband.build(cfg, m)
-    assert proc.planar and proc.planar_factors == (20, 128, 24)
-    p = wideband.make_params(cfg)
-    rng = np.random.default_rng(6)
-    iq = ((rng.normal(size=(2, cfg.chunk_in))
-           + 1j * rng.normal(size=(2, cfg.chunk_in))) * 0.05
-          ).astype(np.complex64)
-    mstate, sstate = wideband.init_state(cfg), wideband.init_state(cfg)
-    minv = np.argsort(proc.channel_order)
-    sinv = np.argsort(wideband.audio_channel_order(cfg))
-    for k in range(2):
-        mstate, audio, rssi = proc(p, mstate, iq[k])
-        sstate, out = wideband.process(cfg, p, sstate, iq[k])
-        got = np.asarray(audio)[:, minv]
-        want = np.asarray(out.audio)[:, sinv]
-        err = np.abs(got - want).max()
-        assert err < 2e-4 * np.abs(want).max(), (k, err)
+        np.testing.assert_allclose(np.asarray(rssi)[:, 0],
+                                   np.asarray(out.rssi)[:, 0], atol=0.02)
 
 
 def test_sharded_wideband_i16_ingest_matches_dequantized():
-    """Mesh i16 ingest (VERDICT r4 #2): int16 IQ pairs stream into the
-    per-shard channelizer kernels and match the dequantized-f32 mesh
-    run bit-compatibly."""
+    """Mesh i16 ingest: int16 IQ pairs stream into the per-shard
+    channelizers and match the dequantized-f32 mesh run."""
     import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.parallel import sharded_wideband
+    from supersdr_jax.runtime import wideband
 
     cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
                                   chunk_in=512 * 256, mode="AM",
@@ -380,12 +319,11 @@ def test_sharded_wideband_i16_ingest_matches_dequantized():
                                   **wideband.PROFILES["fast"])
     m = sharded_wideband.make_mesh(jax.devices()[:4])
     proc = sharded_wideband.build(cfg, m)
-    assert proc.planar
     p = wideband.make_params(cfg)
     rng = np.random.default_rng(7)
     re16 = (rng.normal(size=cfg.chunk_in) * 0.05 * 32768).astype(np.int16)
     im16 = (rng.normal(size=cfg.chunk_in) * 0.05 * 32768).astype(np.int16)
-    from supersdr_tpu.ops import cx
+    from supersdr_jax.ops import cx
     deq = cx.CX(jnp.asarray(re16, jnp.float32) / 32768.0,
                 jnp.asarray(im16, jnp.float32) / 32768.0)
     _, a16, r16 = proc(p, wideband.init_state(cfg), (re16, im16))
@@ -403,8 +341,8 @@ def test_sharded_wideband_process_n_matches_serial_calls():
     exactly (tuple outputs, threaded state), including a mixed
     CX + i16 chunk sequence."""
     import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.parallel import sharded_wideband
+    from supersdr_jax.runtime import wideband
 
     cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
                                   chunk_in=512 * 256, mode="AM",
@@ -433,13 +371,12 @@ def test_sharded_wideband_process_n_matches_serial_calls():
     assert np.isfinite(np.asarray(audios2[0], np.float32)).all()
 
 
-def test_sharded_wideband_fused_controls_on_mesh():
-    """The r5 fused controls survive the mesh: NBFM, squelch and AGC
-    hang run on the planar sharded tiers and match the serial fused
-    pipeline sample-for-sample (same kernels per shard)."""
+def test_sharded_wideband_fused_controls_on_mesh(kernel_tail):
+    """NBFM, squelch and AGC hang survive the mesh: with the kernel tail
+    per shard they match the serial pipeline (same kernel per shard)."""
     import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.parallel import sharded_wideband
+    from supersdr_jax.runtime import wideband
 
     rng = np.random.default_rng(12)
     base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 256,
@@ -454,79 +391,10 @@ def test_sharded_wideband_fused_controls_on_mesh():
                                       **wideband.PROFILES["fast"])
         m = sharded_wideband.make_mesh(jax.devices()[:2])
         proc = sharded_wideband.build(cfg, m)
-        assert proc.planar, extra
         p = wideband.make_params(cfg)
         _, audio, _ = proc(p, wideband.init_state(cfg), iq)
         _, out = wideband.process(cfg, p, wideband.init_state(cfg), iq)
         got = np.asarray(audio, np.float32)
         want = np.asarray(out.audio, np.float32)
-        minv = np.argsort(proc.channel_order)
-        sinv = np.argsort(wideband.audio_channel_order(cfg))
-        err = np.abs(got[:, minv] - want[:, sinv]).max()
+        err = np.abs(got - want).max()
         assert err < 1e-4 * max(np.abs(want).max(), 1e-9), (extra, err)
-
-
-def test_sharded_wideband_waste_override_enables_padded_planar():
-    """`build(..., planar_waste_max=...)` lets a pod opt into a
-    heavily-padded planar form (e.g. d=16 on 2560 channels) — here
-    d=8 on 640 channels (60 % padding, above the default cutoff) runs
-    planar and still matches serial."""
-    import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
-
-    prof = dict(wideband.PROFILES["fast"])
-    prof.update(passband_precision="high", chan_precision="high",
-                chan_tile_t=64)
-    cfg = wideband.WidebandConfig(fs_in=640 * 12_000, n_chan=640,
-                                  chunk_in=640 * 128, mode="AM",
-                                  taps_per=4, n_taps=65, **prof)
-    m = sharded_wideband.make_mesh(jax.devices()[:8])
-    assert not sharded_wideband.build(cfg, m).planar   # default cutoff
-    proc = sharded_wideband.build(cfg, m, planar_waste_max=1.0)
-    assert proc.planar and proc.planar_factors == (5, 128, 8)
-    p = wideband.make_params(cfg)
-    rng = np.random.default_rng(13)
-    iq = ((rng.normal(size=cfg.chunk_in)
-           + 1j * rng.normal(size=cfg.chunk_in)) * 0.05
-          ).astype(np.complex64)
-    _, audio, _ = proc(p, wideband.init_state(cfg), iq)
-    _, out = wideband.process(cfg, p, wideband.init_state(cfg), iq)
-    got = np.asarray(audio)[:, np.argsort(proc.channel_order)]
-    want = np.asarray(out.audio)[
-        :, np.argsort(wideband.audio_channel_order(cfg))]
-    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
-
-
-def test_sharded_wideband_planar_split2_bit_identical_serial():
-    """The radix-2 stage-B split (r5) on the mesh: d=2 keeps the serial
-    (2, 256) factoring, both sides run split2, and the planar mesh
-    program stays BIT-identical to serial through the split's
-    column-order map (state chained across 2 chunks)."""
-    import numpy as np
-    from supersdr_tpu.parallel import sharded_wideband
-    from supersdr_tpu.runtime import wideband
-
-    prof = dict(wideband.PROFILES["fast"])
-    cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
-                                  chunk_in=512 * 256, mode="AM",
-                                  taps_per=4, n_taps=129,
-                                  chan_split2="on", **prof)
-    m = sharded_wideband.make_mesh(jax.devices()[:2])
-    proc = sharded_wideband.build(cfg, m)
-    assert proc.planar and proc.planar_factors == (2, 256, 2)
-    assert not np.array_equal(proc.channel_order, np.arange(512))
-    p = wideband.make_params(cfg)
-    rng = np.random.default_rng(23)
-    iq = ((rng.normal(size=(2, cfg.chunk_in))
-           + 1j * rng.normal(size=(2, cfg.chunk_in))) * 0.05
-          ).astype(np.complex64)
-    mstate, sstate = wideband.init_state(cfg), wideband.init_state(cfg)
-    minv = np.argsort(proc.channel_order)
-    sinv = np.argsort(wideband.audio_channel_order(cfg))
-    for k in range(2):
-        mstate, audio, rssi = proc(p, mstate, iq[k])
-        sstate, out = wideband.process(cfg, p, sstate, iq[k])
-        got = np.asarray(audio)[:, minv]
-        want = np.asarray(out.audio)[:, sinv]
-        assert np.array_equal(got, want), k

@@ -10,9 +10,9 @@ minutes of governor/stream dynamics."""
 
 import numpy as np
 
-from supersdr_tpu.runtime.engine import (EngineConfig, SourceClosed,
+from supersdr_jax.runtime.engine import (EngineConfig, SourceClosed,
                                          StreamEngine)
-from supersdr_tpu.runtime.governor import DriftCompensator, LatencyGovernor
+from supersdr_jax.runtime.governor import DriftCompensator, LatencyGovernor
 
 FRAME = 512
 RATE = 12000.0
@@ -155,8 +155,8 @@ def run_session_real_chain(total_frames: int, outage_at=None,
     (VERDICT r3 #5): every frame runs NCO → passband → demod → AGC →
     resample on the CPU backend, so compile stalls and per-dispatch
     jitter are part of the simulated session, not stubbed out."""
-    from supersdr_tpu.control.receiver import Receiver
-    from supersdr_tpu.runtime import chain as chain_mod
+    from supersdr_jax.control.receiver import Receiver
+    from supersdr_jax.runtime import chain as chain_mod
 
     cfg = chain_mod.ChainConfig(mode="AM", iq_rate=12000,
                                 audio_rate=48000, chunk=FRAME,

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import spectrum
+from supersdr_jax.ops import spectrum
 
 
 def reference_db2col(wf_bytes, zoom, auto=True, low_clip=-120., high_clip=-60.,

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from supersdr_tpu.ops import squelch
-from supersdr_tpu.runtime import chain
+from supersdr_jax.ops import squelch
+from supersdr_jax.runtime import chain
 
 
 def test_squelch_gates_weak_signal():

@@ -1,9 +1,9 @@
 import numpy as np
 
-from supersdr_tpu.apps import tui
-from supersdr_tpu.control.panadapter import Panadapter
-from supersdr_tpu.control.receiver import Receiver
-from supersdr_tpu.runtime import chain
+from supersdr_jax.apps import tui
+from supersdr_jax.control.panadapter import Panadapter
+from supersdr_jax.control.receiver import Receiver
+from supersdr_jax.runtime import chain
 
 
 def make_model(tmp_path):
@@ -12,7 +12,7 @@ def make_model(tmp_path):
     rx = Receiver(cfg=cfg, center_freq_khz=14200.0, freq=14200.0,
                   radio_mode="USB")
     pan = Panadapter(zoom=8, freq_khz=14200.0)
-    from supersdr_tpu.control.memories import MemoryBank
+    from supersdr_jax.control.memories import MemoryBank
     return tui.TuiModel(rx=rx, pan=pan, width=80,
                         memories=MemoryBank(tmp_path / "m.json"))
 
@@ -83,10 +83,10 @@ def test_smeter_text():
 def test_eibi_overlay_lines():
     """'i' toggles EIBI overlay; markers and legend appear for stations
     inside the span (shipped data file, utils:1693-1729 behavior)."""
-    from supersdr_tpu.apps.tui import TuiModel
-    from supersdr_tpu.control.panadapter import Panadapter
-    from supersdr_tpu.control.receiver import Receiver
-    from supersdr_tpu.runtime import chain
+    from supersdr_jax.apps.tui import TuiModel
+    from supersdr_jax.control.panadapter import Panadapter
+    from supersdr_jax.control.receiver import Receiver
+    from supersdr_jax.runtime import chain
 
     cfg = chain.ChainConfig(mode="AM", chunk=2048, os_block=2048)
     rx = Receiver(cfg=cfg, center_freq_khz=6000.0, freq=6000.0,
@@ -106,7 +106,7 @@ def test_eibi_overlay_lines():
 
 
 def test_eibi_ships_with_package():
-    from supersdr_tpu.control.eibi import DEFAULT_EIBI_PATH, EibiDb
+    from supersdr_jax.control.eibi import DEFAULT_EIBI_PATH, EibiDb
     assert DEFAULT_EIBI_PATH.exists()
     db = EibiDb()
     assert db.loaded
@@ -115,10 +115,10 @@ def test_eibi_ships_with_package():
 
 
 def test_help_screen_toggle():
-    from supersdr_tpu.apps.tui import HELP_LINES, TuiModel
-    from supersdr_tpu.control.panadapter import Panadapter
-    from supersdr_tpu.control.receiver import Receiver
-    from supersdr_tpu.runtime import chain
+    from supersdr_jax.apps.tui import HELP_LINES, TuiModel
+    from supersdr_jax.control.panadapter import Panadapter
+    from supersdr_jax.control.receiver import Receiver
+    from supersdr_jax.runtime import chain
 
     cfg = chain.ChainConfig(mode="USB", chunk=2048, os_block=2048)
     m = TuiModel(rx=Receiver(cfg=cfg), pan=Panadapter(zoom=8), width=80)
@@ -130,7 +130,7 @@ def test_help_screen_toggle():
 def test_qso_logger_keys(tmp_path):
     """0/9: add a QSO via the callsign entry line, then find it with the
     search entry (reference logger dialogs, utils:1829-2093)."""
-    from supersdr_tpu.control.logbook import Logbook
+    from supersdr_jax.control.logbook import Logbook
     m = make_model(tmp_path)
     m.logbook = Logbook(tmp_path / "log.sdr")
     m.handle_key("0")

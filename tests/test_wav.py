@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from supersdr_tpu.io import wav
+from supersdr_jax.io import wav
 
 
 def test_kiwi_iq_wav_roundtrip(tmp_path, rng):
@@ -52,7 +52,7 @@ def test_audio_recorder(tmp_path, rng):
 
 
 def test_audio_recorder_stereo(tmp_path):
-    from supersdr_tpu.io import wav
+    from supersdr_jax.io import wav
     rec = wav.AudioRecorder(48000)
     rec.start(str(tmp_path / "st.wav"))
     rec.append(np.stack([np.ones(100) * 0.5, -np.ones(100) * 0.5], axis=-1))

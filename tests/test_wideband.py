@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from supersdr_tpu.runtime import chain, wideband
-from supersdr_tpu.parallel import sharded_wideband
+from supersdr_jax.runtime import chain, wideband
+from supersdr_jax.parallel import sharded_wideband
 
 AGC_OFF = dict(on=False, man_gain_db=50.0)
 
@@ -112,20 +112,26 @@ def test_process_many_matches_sequential_calls():
         st2, state)
 
 
-def test_pallas_fold_config_matches_gather():
-    """cfg.pallas_fold=True (interpret mode on CPU) produces the same
-    audio as the XLA gather channelizer path."""
-    base = dict(fs_in=96_000, n_chan=8, chunk_in=16384, mode="AM",
-                taps_per=8)
-    cfg_g = wideband.WidebandConfig(**base)
-    cfg_p = wideband.WidebandConfig(**base, pallas_fold=True)
-    iq = mw_band(cfg_g, [(1, 400.0), (6, 1100.0)], cfg_g.chunk_in, seed=3)
-    params = wideband.make_params(cfg_g, agc_kwargs=AGC_OFF)
-
-    _, out_g = wideband.process(cfg_g, params, wideband.init_state(cfg_g), iq)
-    _, out_p = wideband.process(cfg_p, params, wideband.init_state(cfg_p), iq)
-    np.testing.assert_allclose(np.asarray(out_p.audio),
-                               np.asarray(out_g.audio), rtol=1e-4, atol=1e-5)
+@pytest.mark.parametrize("profile", ["fast", "quality"])
+def test_legacy_channelizer_equals_mxu2(profile):
+    """The two XLA channelizer routes, fold-then-FFT ("legacy") and the
+    matmul DFT ("mxu2"), give the same audio through the whole pipeline
+    at each profile's precision."""
+    base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 256,
+                mode="AM", taps_per=4, n_taps=129,
+                **{**wideband.PROFILES[profile],
+                   "chan_precision": "highest"})
+    rng = np.random.default_rng(7)
+    iq = ((rng.normal(size=(2, base["chunk_in"]))
+           + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
+          ).astype(np.complex64)
+    outs = {}
+    for impl in ("legacy", "mxu2"):
+        cfg = wideband.WidebandConfig(**{**base, "chan_impl": impl})
+        _, audio = wideband.process_many(cfg, wideband.make_params(cfg),
+                                         wideband.init_state(cfg), iq)
+        outs[impl] = np.asarray(audio, np.float32)
+    assert _snr(outs["legacy"], outs["mxu2"]) > 90
 
 
 def _snr(ref, got):
@@ -134,68 +140,51 @@ def _snr(ref, got):
     return 20 * np.log10(num / max(den, 1e-30))
 
 
-def test_time_major_fused_equals_chan_major():
-    """The zero-transpose time-major path (fused channelizer time-major
-    out → in-tail Toeplitz passband → fused tail w/ in-kernel RSSI)
-    matches the chan-major fast profile, state-chained over two chunks,
-    including the RSSI row. At precision "high" (dot3) both paths are
-    ~f32 and agree tightly; at "default" both are 1-pass bf16 with
-    different summation order, so the bound is the bf16 noise class."""
+def test_time_major_fused_equals_chan_major(kernel_tail):
+    """Time-major audio (the profiles' layout, written directly by the
+    kernel tail) is the transpose of the channel-major audio, state-
+    chained over two chunks, RSSI included."""
     base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
                 mode="AM", taps_per=4, n_taps=129)
-    for prec, check in (("high", "tight"), ("default", "snr")):
-        prof = dict(wideband.PROFILES["fast"])
-        prof.pop("time_major", None)
-        prof.pop("audio_dtype", None)
-        prof.update(passband_precision=prec, chan_precision=prec)
-        cfg_c = wideband.WidebandConfig(**base, **prof)
-        cfg_t = wideband.WidebandConfig(**base, **prof, time_major=True)
-        assert wideband._tmajor_fused_ok(cfg_t)
-        p = wideband.make_params(cfg_c)
-        assert p.chain.W_tailpass is not None    # FIR-fused tail active
-        rng = np.random.default_rng(11)
-        iq = ((rng.normal(size=(2, cfg_c.chunk_in))
-               + 1j * rng.normal(size=(2, cfg_c.chunk_in))) * 0.05
-              ).astype(np.complex64)
-        st_c = wideband.init_state(cfg_c)
-        st_t = wideband.init_state(cfg_t)
-        for k in range(2):
-            st_c, out_c = wideband.process(cfg_c, p, st_c, iq[k])
-            st_t, out_t = wideband.process(cfg_t, p, st_t, iq[k])
-            a_c = np.asarray(out_c.audio)          # [C, T] bin order
-            # planar rows: row i <-> bin order[i] (audio_channel_order)
-            order = wideband.audio_channel_order(cfg_t)
-            a_t = np.asarray(out_t.audio).T        # [T, C] -> [C, T]
-            a_c = a_c[order]
-            if check == "tight":
-                np.testing.assert_allclose(a_t, a_c, rtol=2e-3,
-                                           atol=2e-5)
-                assert _snr(a_c, a_t) > 75, _snr(a_c, a_t)
-            else:
-                assert _snr(a_c, a_t) > 45, _snr(a_c, a_t)
-            np.testing.assert_allclose(np.asarray(out_t.rssi),
-                                       np.asarray(out_c.rssi)[order],
-                                       atol=0.05)
+    prof = dict(wideband.PROFILES["fast"])
+    prof.pop("time_major")
+    cfg_c = wideband.WidebandConfig(**base, **prof)
+    cfg_t = wideband.WidebandConfig(**base, **prof, time_major=True)
+    assert chain.kernel_tail_ok(cfg_t.chain_cfg, (512,))
+    p = wideband.make_params(cfg_c)
+    rng = np.random.default_rng(11)
+    iq = ((rng.normal(size=(2, cfg_c.chunk_in))
+           + 1j * rng.normal(size=(2, cfg_c.chunk_in))) * 0.05
+          ).astype(np.complex64)
+    st_c = wideband.init_state(cfg_c)
+    st_t = wideband.init_state(cfg_t)
+    for k in range(2):
+        st_c, out_c = wideband.process(cfg_c, p, st_c, iq[k])
+        st_t, out_t = wideband.process(cfg_t, p, st_t, iq[k])
+        np.testing.assert_array_equal(np.asarray(out_t.audio).T,
+                                      np.asarray(out_c.audio))
+        np.testing.assert_array_equal(np.asarray(out_t.rssi),
+                                      np.asarray(out_c.rssi))
 
 
-def test_time_major_fallback_keeps_contract():
-    """Configs the fused kernels can't serve (here n_chan=16) fall back
-    to the chan-major path but keep the time-major output contract."""
+def test_time_major_fallback_keeps_contract(kernel_tail):
+    """Configs the kernel tail can't serve (here 520 frames per chunk, not
+    whole kernel tiles) take the XLA tail but keep the time-major output
+    contract."""
     prof = dict(wideband.PROFILES["fast"])
     prof.pop("time_major", None)
-    prof.pop("audio_dtype", None)
     cfg = wideband.WidebandConfig(fs_in=192_000, n_chan=16,
-                                  chunk_in=16 * 512, mode="AM",
+                                  chunk_in=16 * 520, mode="AM",
                                   taps_per=4, n_taps=129, **prof,
                                   time_major=True)
-    assert not wideband._tmajor_fused_ok(cfg)
+    assert not chain.kernel_tail_ok(cfg.chain_cfg, (16,))
     p = wideband.make_params(cfg)
     rng = np.random.default_rng(5)
     iq = ((rng.normal(size=cfg.chunk_in)
            + 1j * rng.normal(size=cfg.chunk_in)) * 0.05
           ).astype(np.complex64)
     _, out = wideband.process(cfg, p, wideband.init_state(cfg), iq)
-    assert np.asarray(out.audio).shape == (512 * 4, 16)
+    assert np.asarray(out.audio).shape == (520 * 4, 16)
 
 
 def test_audio_dtype_f16_quantizes_only():
@@ -225,19 +214,18 @@ def test_audio_dtype_f16_quantizes_only():
     assert snr > 60, f"f16 audio SNR {snr:.1f} dB"
 
 
-def test_time_major_ssb_matches_plain():
-    """USB through the fused time-major path (in-tail FIR + ssb tail)
-    matches the plain-path implementation at the quality precision
-    tier — the serial form of the bench's MID-SSB gate."""
+def test_time_major_ssb_matches_plain(kernel_tail):
+    """USB through the time-major kernel tail matches the plain-path
+    implementation at the quality precision tier — the serial form of
+    the bench's MID-SSB gate."""
     base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
                 mode="USB", taps_per=4, n_taps=129)
     prof = dict(wideband.PROFILES["quality"])
     cfg_t = wideband.WidebandConfig(**base, **prof)
     cfg_p = wideband.WidebandConfig(**base)      # plain f32 FFT path
-    assert wideband._tmajor_fused_ok(cfg_t)
+    assert chain.kernel_tail_ok(cfg_t.chain_cfg, (512,))
     p_t = wideband.make_params(cfg_t)
     p_p = wideband.make_params(cfg_p)
-    assert p_t.chain.W_tailpass is not None
     rng = np.random.default_rng(21)
     iq = ((rng.normal(size=cfg_t.chunk_in)
            + 1j * rng.normal(size=cfg_t.chunk_in)) * 0.05
@@ -245,7 +233,7 @@ def test_time_major_ssb_matches_plain():
     _, out_t = wideband.process(cfg_t, p_t, wideband.init_state(cfg_t), iq)
     _, out_p = wideband.process(cfg_p, p_p, wideband.init_state(cfg_p), iq)
     a_t = np.asarray(out_t.audio).T
-    a_p = np.asarray(out_p.audio)[wideband.audio_channel_order(cfg_t)]
+    a_p = np.asarray(out_p.audio)
     assert _snr(a_p, a_t) > 50, _snr(a_p, a_t)
 
 
@@ -278,17 +266,14 @@ def test_layout_switch_mid_stream():
     assert _snr(a_ref, a_sw) > 70, _snr(a_ref, a_sw)
 
 
-def test_planar_channel_map_is_row_aligned():
-    """On the planar fused path, a carrier at channel_freqs(cfg)[i] must
-    demodulate into audio ROW i — the channel map the CLI and sinks use
-    is row-aligned by construction."""
+def test_channel_map_is_row_aligned():
+    """A carrier at channel_freqs(cfg)[i] must demodulate into audio ROW
+    i at the fast profile — the channel map the CLI and sinks use is
+    row-aligned."""
     prof = dict(wideband.PROFILES["fast"])
     cfg = wideband.WidebandConfig(fs_in=512 * 12_000, n_chan=512,
                                   chunk_in=512 * 512, mode="AM",
                                   taps_per=4, n_taps=129, **prof)
-    assert wideband._planar_active(cfg)
-    order = wideband.audio_channel_order(cfg)
-    assert not np.array_equal(order, np.arange(cfg.n_chan))
     freqs = wideband.channel_freqs(cfg)
     p = wideband.make_params(cfg)
     rng = np.random.default_rng(31)
@@ -308,9 +293,8 @@ def test_planar_channel_map_is_row_aligned():
 
 
 def test_i16_ingest_matches_dequantized_f32():
-    """process_i16 (planar in-kernel dequantize) equals the f32 pipeline
-    fed the dequantized planes — bit-for-bit on the planar path, and on
-    a fallback config (which dequantizes up front)."""
+    """process_i16 (dequantize fused into the channelizer's first pass)
+    equals the f32 pipeline fed the dequantized planes."""
     rng = np.random.default_rng(41)
     for n_chan, chunk in ((512, 512 * 512), (16, 16 * 512)):
         cfg = wideband.WidebandConfig(fs_in=n_chan * 12_000,
@@ -322,7 +306,7 @@ def test_i16_ingest_matches_dequantized_f32():
         im16 = (rng.normal(size=chunk) * 1600).astype(np.int16)
         st_a = wideband.init_state(cfg)
         st_b = wideband.init_state(cfg)
-        from supersdr_tpu.ops import cx as cxm
+        from supersdr_jax.ops import cx as cxm
         deq = cxm.CX(jnp.asarray(re16, jnp.float32) / 32768.0,
                      jnp.asarray(im16, jnp.float32) / 32768.0)
         for _ in range(2):
@@ -333,11 +317,9 @@ def test_i16_ingest_matches_dequantized_f32():
             np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7)
 
 
-def test_tmajor_standalone_passband_branch():
-    """Short filters (< 65 taps) keep the time-major layout but run the
-    STANDALONE time-major passband (fir_matmul_stream_tmajor_c) instead
-    of the in-tail fusion — that branch must match the chan-major
-    pipeline too."""
+def test_time_major_short_filter_matches_chan_major():
+    """A short passband filter (33 taps) in the time-major layout matches
+    the chan-major pipeline."""
     base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
                 mode="AM", taps_per=4, n_taps=33)
     prof = dict(wideband.PROFILES["fast"])
@@ -346,8 +328,6 @@ def test_tmajor_standalone_passband_branch():
     cfg_t = wideband.WidebandConfig(**base, **prof, time_major=True)
     cfg_c = wideband.WidebandConfig(**base, **prof)
     p = wideband.make_params(cfg_t)
-    assert p.chain.W_tailpass is None       # the fused-FIR path is off
-    assert wideband._tmajor_fused_ok(cfg_t)
     rng = np.random.default_rng(51)
     iq = ((rng.normal(size=cfg_t.chunk_in)
            + 1j * rng.normal(size=cfg_t.chunk_in)) * 0.05
@@ -355,7 +335,7 @@ def test_tmajor_standalone_passband_branch():
     _, out_t = wideband.process(cfg_t, p, wideband.init_state(cfg_t), iq)
     _, out_c = wideband.process(cfg_c, p, wideband.init_state(cfg_c), iq)
     a_t = np.asarray(out_t.audio).T
-    a_c = np.asarray(out_c.audio)[wideband.audio_channel_order(cfg_t)]
+    a_c = np.asarray(out_c.audio)
     assert _snr(a_c, a_t) > 75, _snr(a_c, a_t)
 
 
@@ -402,7 +382,7 @@ def test_i16_pair_dtype_guard():
     quantized to int16 (ADVICE r4); int16 pairs still pass."""
     import jax.numpy as jnp
     import pytest
-    from supersdr_tpu.runtime import wideband
+    from supersdr_jax.runtime import wideband
 
     re = np.zeros(64, np.float32)
     with pytest.raises(TypeError, match="int16"):
@@ -410,97 +390,3 @@ def test_i16_pair_dtype_guard():
     assert wideband._is_i16_pair((re.astype(np.int16),
                                   re.astype(np.int16)))
     assert not wideband._is_i16_pair(jnp.zeros(4))
-
-
-def test_stageb_split2_pipeline_matches_unsplit():
-    """chan_split2 halves the fused channelizer's stage-B MXU MACs (r5);
-    through the full planar pipeline with chunk-chained state the split
-    and unsplit programs agree to their precision tier, after aligning
-    each run's own audio_channel_order (the row maps differ)."""
-    base = dict(fs_in=512 * 12_000, n_chan=512, chunk_in=512 * 512,
-                mode="AM", taps_per=8, n_taps=257, audio_rate=48_000,
-                **wideband.PROFILES["fast"])
-    rng = np.random.default_rng(17)
-    iq = ((rng.normal(size=(2, base["chunk_in"]))
-           + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
-          ).astype(np.complex64)
-    outs = {}
-    for s2 in ("off", "on"):
-        cfg = wideband.WidebandConfig(**base, chan_split2=s2)
-        assert wideband._planar_active(cfg)
-        p = wideband.make_params(cfg)
-        st = wideband.init_state(cfg)
-        _, audio = wideband.process_many(cfg, p, st, iq)
-        inv = np.argsort(wideband.audio_channel_order(cfg))
-        outs[s2] = np.asarray(audio)[:, :, inv]       # bin-ordered
-    # the two differ only in bf16 rounding order (fast tier)
-    err = float(np.linalg.norm(outs["on"] - outs["off"])
-                / np.linalg.norm(outs["off"]))
-    assert err < 6e-3, err
-    # the split's order map really is different (and self-consistent)
-    on_cfg = wideband.WidebandConfig(**base, chan_split2="on")
-    off_cfg = wideband.WidebandConfig(**base, chan_split2="off")
-    assert not np.array_equal(wideband.audio_channel_order(on_cfg),
-                              wideband.audio_channel_order(off_cfg))
-
-
-def test_chan_factors_override_pipeline():
-    """chan_factors=(n1, n2) overrides the planar DIF tree — e.g. a
-    radix-5-class stage A with a deeper stage-B split (r5). The
-    override must agree with the default factoring through the full
-    quality pipeline, each via its own audio_channel_order."""
-    base = dict(fs_in=1024 * 12_000, n_chan=1024, chunk_in=1024 * 128,
-                mode="AM", taps_per=4, n_taps=129, audio_rate=48_000,
-                **wideband.PROFILES["quality"])
-    rng = np.random.default_rng(41)
-    iq = ((rng.normal(size=(2, base["chunk_in"]))
-           + 1j * rng.normal(size=(2, base["chunk_in"]))) * 0.05
-          ).astype(np.complex64)
-    outs = {}
-    for name, extra in [("default", {}),
-                        ("f512", dict(chan_factors=(2, 512)))]:
-        cfg = wideband.WidebandConfig(**base, **extra)
-        assert wideband._planar_active(cfg), name
-        p = wideband.make_params(cfg)
-        st = wideband.init_state(cfg)
-        _, audio = wideband.process_many(cfg, p, st, iq)
-        inv = np.argsort(wideband.audio_channel_order(cfg))
-        outs[name] = np.asarray(audio)[:, :, inv]
-    n1, n2 = wideband._factors_for(
-        wideband.WidebandConfig(**base, chan_factors=(2, 512)))
-    assert (n1, n2) == (2, 512)
-    err = float(np.linalg.norm(outs["f512"] - outs["default"])
-                / np.linalg.norm(outs["default"]))
-    assert err < 1e-4, err          # dot3 tier: summation-order noise
-    with pytest.raises(ValueError):
-        wideband.WidebandConfig(**base, chan_factors=(3, 512))
-
-
-def test_headline_quality_factoring_and_order_maps():
-    """The shipped quality profile at the headline channel count runs
-    the min-n1 (5, 512) tree with a 2-level stage-B split; the fast
-    profile keeps (10, 256) unsplit. Order maps must be permutations
-    that agree with the factoring."""
-    base = dict(fs_in=30_720_000, n_chan=2560, chunk_in=2560 * 512,
-                mode="AM", taps_per=8, n_taps=257, audio_rate=48_000)
-    q = wideband.WidebandConfig(**base, **wideband.PROFILES["quality"])
-    f = wideband.WidebandConfig(**base, **wideband.PROFILES["fast"])
-    assert wideband._planar_active(q) and wideband._planar_active(f)
-    assert wideband._factors_for(q) == (5, 512)
-    assert wideband._split_levels_for(q, 512) == 2
-    assert wideband._factors_for(f) == (10, 256)
-    assert wideband._split_levels_for(f, 256) == 0
-    for cfg, (n1, n2) in ((q, (5, 512)), (f, (10, 256))):
-        order = wideband.audio_channel_order(cfg)
-        assert sorted(order) == list(range(2560))     # a permutation
-        # row 0 is plane 0 / column 0 → k2 = 0 → bin 0 either way
-        assert order[0] == 0
-    # quality order: row 1 (plane 0, col 1) → k2 = 2^L·1 = 4 → bin 4·5
-    assert wideband.audio_channel_order(q)[1] == 20
-    # fast order: row 1 → k2 = 1 → bin 1·10
-    assert wideband.audio_channel_order(f)[1] == 10
-    # the mesh picks the SAME tree at d=1 per tier (bit-identity basis)
-    from supersdr_tpu.parallel import sharded_wideband as sw
-    assert sw._planar_factors_for(2560, 1, 512) == (5, 512, 5)
-    assert sw._planar_factors_for(2560, 1, 256) == (10, 256, 10)
-    assert sw._planar_factors_for(2560, 4, 256) == (20, 128, 20)
